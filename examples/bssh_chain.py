@@ -1,4 +1,4 @@
-"""Bond-SSH chain (TPU-native equivalent of /root/reference/examples/bssh_chain.jl)."""
+"""Bond-SSH chain (JAX equivalent of /root/reference/examples/bssh_chain.jl)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Bond-SSH square lattice (TPU-native equivalent of /root/reference/examples/bssh_square.jl)."""
+"""Bond-SSH square lattice (JAX equivalent of /root/reference/examples/bssh_square.jl)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Honeycomb Holstein tutorial (TPU-native equivalent of
+"""Honeycomb Holstein tutorial (JAX equivalent of
 /root/reference/tutorials/holstein_honeycomb.jl).
 
 Usage: python holstein_honeycomb.py <sID> <Omega> <alpha> <mu> <L> <beta>

@@ -1,5 +1,5 @@
 """Honeycomb Holstein with wall-clock-gated checkpointing and a runtime limit
-(TPU-native equivalent of /root/reference/tutorials/holstein_honeycomb_checkpoint.jl).
+(JAX equivalent of /root/reference/tutorials/holstein_honeycomb_checkpoint.jl).
 
 Rerun the script with the same arguments to resume from the latest checkpoint;
 finished simulations delete their checkpoints."""

@@ -1,5 +1,5 @@
 """Honeycomb Holstein with chemical-potential tuning to a target density
-(TPU-native equivalent of /root/reference/tutorials/holstein_honeycomb_density_tuning.jl)."""
+(JAX equivalent of /root/reference/tutorials/holstein_honeycomb_density_tuning.jl)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Multi-walker honeycomb Holstein simulation (TPU-native equivalent of
+"""Multi-walker honeycomb Holstein simulation (JAX equivalent of
 /root/reference/tutorials/holstein_honeycomb_mpi.jl): instead of MPI ranks, W
 independent Markov chains ride a vmapped walker axis sharded over the device
 mesh; each walker writes its own bins tagged by pID, exactly mirroring the
@@ -30,6 +30,7 @@ from smoqyelphqmc_tpu.models.tight_binding import TightBindingParameters
 from smoqyelphqmc_tpu.parallel.walkers import (
     init_walker_states,
     shard_walker_states,
+    walker_device_count,
     walker_measure,
     walker_mesh,
     walker_sweep,
@@ -60,7 +61,7 @@ def run(
     ctx, state0 = initialize_qmc(tbp, elph, seed=seed, tol=tol, maxiter=maxiter)
 
     W = n_walkers or len(jax.devices())
-    mesh = walker_mesh(min(W, len(jax.devices())))
+    mesh = walker_mesh(walker_device_count(W, len(jax.devices())))
     states = shard_walker_states(init_walker_states(ctx, state0, W, seed=seed + 1), mesh)
     est = build_greens_estimator(elph.Ltau, geo.n_orbitals, geo.L, Nrv=Nrv)
     params = HMCParams(Nt=Nt)

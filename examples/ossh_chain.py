@@ -1,4 +1,4 @@
-"""Optical-SSH chain (TPU-native equivalent of /root/reference/examples/ossh_chain.jl)."""
+"""Optical-SSH chain (JAX equivalent of /root/reference/examples/ossh_chain.jl)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Optical-SSH honeycomb lattice (TPU-native equivalent of
+"""Optical-SSH honeycomb lattice (JAX equivalent of
 /root/reference/examples/ossh_honeycomb.jl)."""
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Optical-SSH square lattice (TPU-native equivalent of /root/reference/examples/ossh_square.jl)."""
+"""Optical-SSH square lattice (JAX equivalent of /root/reference/examples/ossh_square.jl)."""
 
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
-"""A/B performance harness for TPU tuning decisions.
+"""A/B performance harness for preconditioner and batching decisions.
 
 Compares, at the BASELINE.md headline config:
   1. spectral (f32/f64) vs KPM preconditioner: solve time + iterations
   2. eigh-on-device cost (the spectral refresh)
   3. walker batching W in {1, 2, 4, 8}: batched MtM throughput scaling
-Run on the real TPU; falls back to CPU with --cpu."""
+Run on the GPU: python scripts/ab_bench.py (--cpu forces the CPU backend for a
+dry run; its times say nothing about the card)."""
 
 import sys
 import time

@@ -1,4 +1,4 @@
-"""Stage profile of the W-walker measurement pass (VERDICT round-3 item 1).
+"""Stage profile of the W-walker measurement pass.
 
 Times, at the headline config (Holstein honeycomb L=12, beta=12, Ltau=240,
 W walkers, Nrv random vectors):

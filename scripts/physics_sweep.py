@@ -1,6 +1,6 @@
 """Production-scale physics validation: CDW correlation ratio vs beta.
 
-Reproduces a known TREND, not a point (round-3 VERDICT item 4): on the
+Reproduces a known TREND, not a point: on the
 half-filled honeycomb Holstein model (Omega = t, alpha = 1.5 — the reference
 tutorial config, /root/reference/tutorials/holstein_honeycomb.jl:53-68) the
 Q = Gamma staggered-CDW correlation ratio
@@ -13,7 +13,7 @@ disordered phase) — the standard finite-size-crossing diagnostic used with
 this estimator (PRE 105, 065302; honeycomb-Holstein CDW physics per
 PRL 122, 077602). Each (L, beta) point runs the PRODUCTION multi-walker
 driver (W vmapped walkers, shared-precond controller, contraction-engine
-measurements, binned HDF5) and takes jackknife error bars over the merged
+measurements, binned .npz archives) and takes jackknife error bars over the merged
 walker bins.
 
 Run: python scripts/physics_sweep.py [--Ls 6,9] [--betas 2,4,6,8,10]
@@ -53,12 +53,10 @@ def main():
             out_dir = sys.argv[i + 1]
 
     # persistent XLA compile cache: the sweep compiles one large driver
-    # program per (L, beta) pair — on a warm cache reruns skip ~200 s each
-    # (same rationale as bench._enable_compile_cache; the big programs load
-    # fine on this backend, only the small matvec loop is pathological)
-    from bench import _enable_compile_cache
+    # program per (L, beta) pair, which a warm cache skips on reruns
+    from smoqyelphqmc_tpu.utils.compile_cache import enable_compile_cache
 
-    _enable_compile_cache()
+    enable_compile_cache()
 
     from _common import holstein_honeycomb_model, holstein_honeycomb_spec
 

@@ -13,7 +13,7 @@ script measures, on the live device, for Holstein honeycomb at beta = 12
   - estimated per-sweep cost: 27 solves * t_solve + 3 refreshes
     (reflection + swap + 25 HMC solves; 3 refreshes/sweep)
 
-and prints a Markdown table for BENCH.md plus the implied auto-select
+and prints a Markdown table plus the implied auto-select
 crossover. Run: python scripts/scaling_bench.py [--cpu] [--sizes 6,12]
 [--skip-none] [--skip-spectral] — the skip flags drop the unpreconditioned
 solve (minutes at N >= 2500) and the dense-eigh spectral path for the
@@ -101,19 +101,16 @@ def main():
                 print(f"  {label} failed at L={L}: {e}", file=sys.stderr)
                 results[label] = (float("nan"),) * 3
 
-        # production force-solve path: f32 solve_MtM (rides the fused Pallas
-        # whole-solve kernel where VMEM allows, XLA CG otherwise), with the
-        # AUTO-selected preconditioner (spectral <= 4000 sites, kpm above)
+        # production force-solve path: f32 solve_MtM with the AUTO-selected
+        # preconditioner (spectral <= 4000 sites, kpm above)
         try:
             from smoqyelphqmc_tpu.ops.fermion_det import solve_MtM
-            from smoqyelphqmc_tpu.ops.pallas_fused import build_fused_pcg
             from smoqyelphqmc_tpu.ops.preconditioner import AUTO_SPECTRAL_MAX_SITES
 
             if N <= AUTO_SPECTRAL_MAX_SITES and "spectral" not in skip:
                 pre32 = jax.jit(lambda f: build_spectral(f, dtype="float32"))(fdm)
             else:
                 pre32 = KPMPreconditioner.build(fdm.astype(jnp.float32), jax.random.PRNGKey(0))
-            fused = build_fused_pcg(fdm.astype(jnp.float32), pre32) is not None
             s32 = jax.jit(
                 lambda f, p, b: solve_MtM(f, b, precond=p, tol=1e-5, maxiter=2000)
             )
@@ -121,7 +118,7 @@ def main():
             x32, st32 = s32(fdm, pre32, v32)
             jax.block_until_ready(x32)
             t_f32 = timeit(lambda b: s32(fdm, pre32, b)[0], v32, n=5) * 1e3
-            f32_col = f"{t_f32:.1f} ({int(st32.iters)}{', fused' if fused else ''})"
+            f32_col = f"{t_f32:.1f} ({int(st32.iters)})"
         except Exception as e:  # pragma: no cover
             print(f"  f32 solve failed at L={L}: {e}", file=sys.stderr)
             f32_col = "nan"

@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # Recorded gate for the SLOW test suite (ED-physics oracles + example e2e
 # runs — the strongest correctness statements in the repo, deselected from the
-# default fast gate). Run once per round at HEAD and stamp the result in
-# WORKLOG.md (VERDICT round 2, item 8).
+# default fast gate). Run at HEAD; it prints a stamp with the commit, wall
+# time and exit status.
 #
 # Usage: bash scripts/slow_gate.sh  [extra pytest args...]
 set -u
@@ -15,5 +15,4 @@ STATUS=${PIPESTATUS[0]}
 ELAPSED=$((SECONDS - T0))
 echo
 echo "slow-gate stamp: HEAD=${HEAD} start=${START} wall=${ELAPSED}s exit=${STATUS}"
-echo "(append this stamp with the green count to WORKLOG.md)"
 exit "$STATUS"

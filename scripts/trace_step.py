@@ -1,6 +1,6 @@
 """Capture a device trace of the W-walker HMC trajectory and aggregate op time.
 
-Identifies the per-step XLA tail (WORKLOG item 32): prints total device time per
+Identifies the per-step XLA tail: prints total device time per
 op-name bucket so fusion work can target the real top contributors.
 
 Run: python scripts/trace_step.py [--W 8] [--Nt 24] [--stage hmc|sweep|refresh]
@@ -70,7 +70,7 @@ def parse():
         if e.get("ph") != "X":
             continue
         pname = pid_names.get(e.get("pid"), "")
-        if "TPU" not in pname and "/device" not in pname.lower():
+        if "/device" not in pname.lower():
             continue
         # only XLA op lane (skip step/module summary lanes)
         name = e.get("name", "")

@@ -1,4 +1,4 @@
-"""Stage-level profile of the W-walker batched sweep (VERDICT round-1 weak #2).
+"""Stage-level profile of the W-walker batched sweep.
 
 Times each update stage vmapped at W in {1, 8}: reflection, swap, HMC
 (trajectory), the preconditioner refresh alone, one force evaluation, and the

@@ -1,9 +1,9 @@
-"""smoqyelphqmc_tpu — TPU-native electron-phonon determinant QMC framework.
+"""smoqyelphqmc_tpu — accelerator-native electron-phonon determinant QMC framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 SmoQySuite/SmoQyElPhQMC.jl (reference layout: /root/reference/src/SmoQyElPhQMC.jl):
 near-linear-scaling quantum Monte Carlo for spin-symmetric electron-phonon models
-(Holstein + SSH couplings), built TPU-first:
+(Holstein + SSH couplings), built for one GPU or several:
 
 - the fermion determinant matrix M is applied matrix-free via checkerboard-factorized
   propagators expressed as per-color gather + elementwise kernels over (Ltau, N)

@@ -13,8 +13,9 @@ from __future__ import annotations
 import os
 from typing import Sequence, Tuple
 
-import h5py
 import numpy as np
+
+from . import archive
 
 
 def _jackknife_ratio(values: np.ndarray):
@@ -52,12 +53,11 @@ def compute_composite_correlation_ratio(
     """Correlation ratio for a composite correlation measured during the run.
     Composite data is stored per id-pair; coefficients (and displacement phases
     when present and `spec` provides the reciprocal lattice) fold in here."""
-    merged = os.path.join(datafolder, "binned_data.h5")
-    with h5py.File(merged, "r") as f:
-        ds = f["composite"][name]
-        data = ds[()]  # (nb, n_pairs, Lt+1, *L)
-        coefs = np.asarray(ds.attrs.get("coefficients", np.ones(data.shape[1])))
-        disps = np.asarray(ds.attrs["pair_displacements"]) if "pair_displacements" in ds.attrs else None
+    f = archive.load(os.path.join(datafolder, "binned_data" + archive.EXT))
+    data = f[f"composite/{name}"]  # (nb, n_pairs, Lt+1, *L)
+    ds_attrs = archive.attrs(f, f"composite/{name}")
+    coefs = np.asarray(ds_attrs.get("coefficients", np.ones(data.shape[1])))
+    disps = ds_attrs.get("pair_displacements")
     if type == "equal-time":
         Cr = data[:, :, 0]
     else:  # integrated (trapezoid weights, unit dtau scale cancels in the ratio)
@@ -88,9 +88,8 @@ def compute_correlation_ratio(
     type: str = "equal-time",
 ) -> Tuple[complex, float]:
     """Correlation ratio for a plain correlation (id pairs summed, or a subset)."""
-    merged = os.path.join(datafolder, "binned_data.h5")
-    with h5py.File(merged, "r") as f:
-        data = f["correlations"][correlation][()]  # (nb, pairs, Lt+1, *L)
+    f = archive.load(os.path.join(datafolder, "binned_data" + archive.EXT))
+    data = f[f"correlations/{correlation}"]  # (nb, pairs, Lt+1, *L)
     if pairs is not None:
         data = data[:, list(pairs)]
     Cr = data[:, :, 0] if type == "equal-time" else data.mean(axis=2)

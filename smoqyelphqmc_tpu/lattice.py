@@ -198,7 +198,7 @@ class ModelGeometry:
 def checkerboard_decomposition(neighbor_table: np.ndarray) -> Tuple[np.ndarray, List[np.ndarray]]:
     """Greedy edge coloring of the hopping graph into non-overlapping groups.
 
-    TPU-native re-design of Checkerboard.jl's `checkerboard_decomposition!`
+    Re-design of Checkerboard.jl's `checkerboard_decomposition!`
     (used at /root/reference/src/FermionDetMatrix.jl:96): hoppings are partitioned
     into "colors" such that within a color no site appears twice, so all 2x2 hop
     rotations of a color commute and can be applied as one vectorized

@@ -3,7 +3,7 @@
 Re-design of /root/reference/src/Measurements/GreensEstimator.jl. The estimator
 holds Nrv unit-phase complex random vectors R and GR = M^{-1} R, obtained from ONE
 batched CG solve of [M^T M] x = M^T R over all (vector, channel) systems — the
-TPU replacement for the reference's sequential per-vector solves
+batched replacement for the reference's sequential per-vector solves
 (GreensEstimator.jl:154-168).
 
 Estimators (complex fields are (re, im) array pairs; no complex dtypes):
@@ -16,7 +16,8 @@ Estimators (complex fields are (re, im) array pairs; no complex dtypes):
   four static unit-cell displacements, optional hopping-amplitude weight fields
   with conjugation flags, and tau = 0 / beta delta-function boundary corrections;
 - translational averaging S[r] += (1/Nvol) sum_i a[i+r] b[i] as multi-axis DFT
-  matmuls (ops/fourier.py), batched over all random-vector pairs at once.
+  matmuls (ops/fourier.py, at Precision.HIGHEST), batched over all
+  random-vector pairs at once.
 
 All correlation outputs have shape (Ltau + 1, *L) — displacement tau = 0..beta —
 as (re, im) pairs; accumulation into named containers happens one level up.
@@ -76,7 +77,7 @@ class GreensEstimator:
     joint_space: bool = static_field(default=True)
     # dtype of the contraction engine: float32 rounding (~1e-7) is far below the
     # 1/sqrt(Nrv...) statistical noise of the estimators, so the FFT/product
-    # arithmetic can run at native MXU speed while the CG solves stay f64
+    # arithmetic can run in f32 while the CG solves stay f64
     dtype: str = static_field(default="float64")
 
     # ------------------------------------------------------------------
@@ -204,8 +205,7 @@ def update_greens_estimator(
     """Draw fresh unit-phase random vectors and solve GR = M^{-1} R in one
     batched CG (update_greens_estimator!, GreensEstimator.jl:125-175).
 
-    solve_dtype='float32' runs the Nrv solves in f32 (riding the fused Pallas
-    solver on TPU). The solve residual enters measurements only as a BIAS of
+    solve_dtype='float32' runs the Nrv solves in f32. The solve residual enters measurements only as a BIAS of
     relative size ~tol — at the clamped 2e-5 this sits 3-4 orders below the
     stochastic estimator noise (~1/sqrt(Nrv)) and below the f32 rounding of the
     stored GR fields (est.dtype is float32 in the production driver), while the

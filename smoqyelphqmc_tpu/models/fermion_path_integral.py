@@ -1,6 +1,6 @@
 """Fermion path integral: V(tau, site) and t(tau, hop) as a pure function of x.
 
-TPU-native re-design of SmoQyDQMC's FermionPathIntegral (SURVEY.md section 2b,
+Re-design of SmoQyDQMC's FermionPathIntegral (SURVEY.md section 2b,
 /root/reference/src/FermionDetMatrix.jl:72): instead of incrementally adding /
 subtracting phonon contributions with update!(fpi, params, x, +-1)
 (/root/reference/src/reflection_update.jl:81-96), the time-dependent potential and
@@ -35,11 +35,6 @@ class FermionPathIntegral:
     dtau: float = static_field()
     Ltau: int = static_field()
     n_sites: int = static_field()
-    # True when t carries NO tau dependence (no SSH couplings): every t[l] row
-    # is the same broadcast of t0. Lets the fused Pallas kernels store the
-    # checkerboard coefficient tables as single (N,) rows instead of full
-    # (Ltau, N) planes (ops/pallas_fused.py) — trace-time static by model shape
-    static_hops: bool = static_field(default=False)
 
 
 def holstein_potential(elph: ElectronPhononParameters, x: jnp.ndarray) -> jnp.ndarray:
@@ -120,5 +115,4 @@ def build_path_integral(
 
     return FermionPathIntegral(
         V=V, t=t, t_im=t_im, dtau=elph.dtau, Ltau=Ltau, n_sites=n_sites,
-        static_hops=elph.n_ssh == 0,
     )

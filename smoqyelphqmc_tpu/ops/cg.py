@@ -1,7 +1,7 @@
 """Batched preconditioned conjugate gradient under `lax.while_loop`.
 
-Re-design of /root/reference/src/IterativeSolvers/ConjugateGradient.jl for TPU
-execution: one CG drives MANY right-hand sides at once (complex channel pairs,
+Re-design of /root/reference/src/IterativeSolvers/ConjugateGradient.jl for
+accelerator execution: one CG drives MANY right-hand sides at once (complex channel pairs,
 random vectors, walkers — all leading axes of a (..., Ltau, N) real array), with
 per-system convergence masks so early-converged systems freeze while the rest
 iterate. Iteration count is data-dependent, so the loop is a `lax.while_loop`
@@ -122,14 +122,12 @@ def cg_solve_mixed(
     inner_tol: float = 1e-5,
     max_outer: int = 12,
     sys_ndim: int = 2,
-    inner_solver: Optional[Callable] = None,
     x0: Optional[jnp.ndarray] = None,
 ):
     """Mixed-precision defect-correction (reliable-update) CG.
 
     The standard accelerator formulation from the lattice-QCD literature (see
-    PAPERS.md): the Krylov work runs in float32 — near-native TPU speed — while
-    an outer loop computes true float64 residuals and accumulates corrections,
+    PAPERS.md): the Krylov work runs in float32 while an outer loop computes true float64 residuals and accumulates corrections,
 
         r = b - A x   (f64);   solve A e ~= r in f32 to inner_tol;   x += e,
 
@@ -173,23 +171,18 @@ def cg_solve_mixed(
         # config regardless of inner_tol) — runs at a loose relative tolerance
         # (a handful of iterations) instead of a full inner_tol solve. Never
         # looser than 0.25, never tighter than inner_tol, so early cycles are
-        # untouched. The fused kernel accepts the traced tolerance through its
-        # rhs-scaling trick (ops/pallas_fused.py:FusedPCG.__call__).
+        # untouched.
         itol = jnp.maximum(
             inner_tol, jnp.minimum(0.25, 0.25 * tol / jnp.maximum(jnp.max(eps), 1e-300))
         )
-        if inner_solver is not None:
-            # e.g. the VMEM-resident fused Pallas PCG (ops/pallas_fused.py)
-            e32, stats = inner_solver(r.astype(jnp.float32), itol, maxiter)
-        else:
-            e32, stats = cg_solve(
-                apply_A_low,
-                r.astype(jnp.float32),
-                precond=precond,
-                tol=itol,
-                maxiter=maxiter,
-                sys_ndim=sys_ndim,
-            )
+        e32, stats = cg_solve(
+            apply_A_low,
+            r.astype(jnp.float32),
+            precond=precond,
+            tol=itol,
+            maxiter=maxiter,
+            sys_ndim=sys_ndim,
+        )
         x = x + e32.astype(x.dtype)
         r = b - apply_A(x)
         eps = jnp.sqrt(_sys_dot(r, r, sys_ndim)) / safe_normb

@@ -1,6 +1,6 @@
 """Checkerboard propagator application as gather + elementwise kernels.
 
-TPU-native re-design of the reference's sequential in-place 2x2 hop rotations
+Accelerator re-design of the reference's sequential in-place 2x2 hop rotations
 (/root/reference/src/checkerboard_matrix_multiply.jl:26-72): each checkerboard color
 touches disjoint site pairs, so one color application is
 
@@ -8,12 +8,10 @@ touches disjoint site pairs, so one color application is
 
 with per-site coefficient planes C_c, S_c of shape (Ltau, N) (or (N,) for a
 time-averaged single-slice propagator) and a static site-permutation gather
-`partner_c`. No scatter appears in the hot path; the tau axis is fully vectorized
-(sublane dimension), sites ride the lane dimension, and arbitrary leading batch
-axes (complex channel, random vectors, walkers) broadcast for free.
+`partner_c`. No scatter appears in the hot path; the tau and site axes are fully
+vectorized, and arbitrary leading batch axes (complex channel, random vectors, walkers) broadcast for free.
 
-dtype note: the TPU backend used here has no complex dtypes, so the framework
-carries complex space-time fields as a leading real/imag channel axis. For real
+dtype note: the framework carries complex space-time fields as a leading real/imag channel axis. For real
 hopping amplitudes (every model family in the reference) each 2x2 hop block
 [[cosh, s], [s, cosh]] (s = sign(t) sinh(dtau |t|)) is REAL symmetric with unit
 determinant, so:

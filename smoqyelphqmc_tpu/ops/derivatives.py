@@ -212,50 +212,6 @@ def _add_holstein_V_force(
     return force.at[phonons].add(val)
 
 
-def holstein_force_from_planes(
-    P1: jnp.ndarray,
-    P2: jnp.ndarray,
-    elph: ElectronPhononParameters,
-    x: jnp.ndarray,
-    Lam: jnp.ndarray,
-    plan: ForcePlan,
-) -> jnp.ndarray:
-    """Assemble the fermionic force from the fused-kernel product planes
-    (ops/pallas_fused.py:FusedForce) for the Holstein-only symmetric path.
-
-    P1 carries the M-derivative site products (the prod of
-    _add_holstein_V_force with nu = +2, i.e. add_M_derivative_force at
-    nu = -2); P2 the Lambda-derivative products (add_lambda_derivative_force
-    at nu = -2). Coefficients and the (n_phonon, Ltau) scatter are tiny and
-    stay in XLA."""
-    force = jnp.zeros((elph.n_phonon, elph.Ltau), dtype=P1.dtype)
-    if elph.n_holstein == 0:
-        return force
-    sites = elph.hol_to_site
-    phonons = elph.hol_to_phonon
-    xp = x[phonons, :]  # (n_hol, Ltau)
-    dV = elph.dtau * (
-        elph.hol_alpha[:, None]
-        + 2.0 * elph.hol_alpha2[:, None] * xp
-        + 3.0 * elph.hol_alpha3[:, None] * xp**2
-        + 4.0 * elph.hol_alpha4[:, None] * xp**3
-    )
-    val = 2.0 * dV * P1[:, sites].T * jnp.asarray(plan.hol_finite, dtype=P1.dtype)[:, None]
-    force = force.at[phonons].add(val)
-    idx = np.where(elph.hol_ph_sym)[0]
-    if idx.size:
-        idx_j = jnp.asarray(idx.astype(np.int32))
-        s_sites = elph.hol_to_site[idx]
-        s_phonons = elph.hol_to_phonon[idx]
-        xs = x[s_phonons, :]
-        dcoup = 0.5 * elph.dtau * (
-            elph.hol_alpha[idx_j][:, None] + 3.0 * elph.hol_alpha3[idx_j][:, None] * xs**2
-        )
-        val2 = -2.0 * (dcoup.T * Lam[:, s_sites] * P2[:, s_sites])
-        force = force.at[s_phonons].add(val2.T)
-    return force
-
-
 def add_M_derivative_force(
     force: jnp.ndarray,
     nu: float,

@@ -42,10 +42,9 @@ class FourierAccelerator:
     m: jnp.ndarray  # (n_phonon, Ltau) fictitious mass (0 for frozen modes)
     fwd: AxisDFT
     inv: AxisDFT
-    # f32 copies of the DFT pair for the per-leapfrog-step force path: f64
-    # matmuls are software-emulated on TPU (~10x), and the force is only
-    # tol~1e-5 accurate anyway — the exact f64 (x, p) omega-space carry and
-    # the endpoint actions are untouched (updates/hmc.py)
+    # f32 copies of the DFT pair for the per-leapfrog-step force path: the
+    # force is only tol~1e-5 accurate anyway — the exact f64 (x, p)
+    # omega-space carry and the endpoint actions are untouched (updates/hmc.py)
     fwd32: AxisDFT
     inv32: AxisDFT
     Ltau: int = static_field()
@@ -93,9 +92,8 @@ class FourierAccelerator:
     # omega-space representation: the HMC trajectory carries (x, p) as DFT
     # pairs in the (unnormalized) fwd convention, so the exact drift is a pure
     # elementwise rotation and each leapfrog step costs only ONE inverse DFT
-    # (x to tau-space for the force) plus ONE forward DFT (the force kick) —
-    # the f64 DFT matmuls are software-emulated on TPU and dominated the
-    # per-step cost when evolve() round-tripped both x and p every drift.
+    # (x to tau-space for the force) plus ONE forward DFT (the force kick)
+    # instead of round-tripping both x and p every drift.
     # ------------------------------------------------------------------
     def to_omega(self, v: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
         """tau -> omega (fwd-DFT convention): (re, im) pair."""
@@ -109,8 +107,7 @@ class FourierAccelerator:
     def to_tau_f32(self, vr: jnp.ndarray, vi: jnp.ndarray) -> jnp.ndarray:
         """omega -> tau through the f32 DFT pair — for the per-step force path
         only (the force solve runs at tol ~1e-5 in f32; a ~1e-7 relative error
-        in its input field is invisible there, while the emulated-f64 matmul it
-        replaces dominates the per-leapfrog-step cost on TPU)."""
+        in its input field is invisible there)."""
         return self.inv32.apply(
             vr.astype(jnp.float32), vi.astype(jnp.float32), axis=1
         )[0]
@@ -160,7 +157,7 @@ class FourierAccelerator:
         oscillators (c = cos(w t), a = sin(w t)/(m w), g = m w sin(w t)),
         zero-frequency live modes (c = 1, a = t/m, g = 0) and frozen modes
         (c = 1, a = 0, g = 0). Hoisting this out of the leapfrog scan replaces
-        Nt software-emulated f64 cos/sin plane evaluations per trajectory with
+        Nt f64 cos/sin plane evaluations per trajectory with
         one per distinct drift duration (updates/hmc.py)."""
         m, Q = self.m, self.Q
         live = m > 0

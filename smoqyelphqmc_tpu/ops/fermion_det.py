@@ -10,8 +10,8 @@ factorizations:
 
 with CB the checkerboard approximation (ops/checkerboard.py). For real hoppings
 (every reference model family) M is a REAL matrix, so complex pseudofermion fields
-ride a leading channel axis of size 2 and all products broadcast over it — the TPU
-backend has no complex dtypes, and none are needed in this hot path. Arbitrary
+ride a leading channel axis of size 2 and all products broadcast over it — no complex dtypes
+are needed in this hot path. Arbitrary
 further leading batch dimensions (random vectors, walkers) broadcast the same way,
 replacing the reference's sequential per-vector loops with one batched application.
 """
@@ -55,8 +55,6 @@ class FermionDetMatrix:
     structure: CheckerboardStructure = static_field()
     Ltau: int = static_field()
     n_sites: int = static_field()
-    # tau-independent hoppings (no SSH): fused kernels compress the C/S tables
-    static_hops: bool = static_field(default=False)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -86,7 +84,6 @@ class FermionDetMatrix:
             structure=structure,
             Ltau=fpi.Ltau,
             n_sites=fpi.n_sites,
-            static_hops=fpi.static_hops,
         )
 
     # ------------------------------------------------------------------
@@ -163,7 +160,6 @@ class FermionDetMatrix:
             structure=self.structure,
             Ltau=self.Ltau,
             n_sites=self.n_sites,
-            static_hops=self.static_hops,
         )
 
     @property
@@ -216,12 +212,6 @@ def solve_MtM(
     statistically free since CG still converges to tol)."""
     from .cg import cg_solve, cg_solve_mixed
 
-    # Fully-fused Pallas solve (ops/pallas_fused.py): the whole Krylov loop in
-    # one VMEM-resident kernel. Applies to the f32 + symmetric + real-hopping +
-    # spectral-preconditioner path — exactly the production force solves (and
-    # the inner solves of mixed-precision f64 defect correction). The gate is
-    # trace-time static (dtypes/types/flags), so either branch traces to a
-    # single clean program.
     # an f32 right-hand side IS the low-precision system: defect correction
     # would add nothing (the f32 solve already meets any tol >= f32 resolution)
     mixed = mixed and rhs.dtype == jnp.float64
@@ -229,28 +219,15 @@ def solve_MtM(
     # to f64 and break the while-loop carry dtypes — the f32 request wins
     if rhs.dtype == jnp.float32 and not mixed and fdm.exp_nV.dtype != jnp.float32:
         fdm = fdm.astype(jnp.float32)
-    fused = None
-    if rhs.dtype == jnp.float32 or mixed:
-        from .pallas_fused import fused_cg_mode, build_fused_pcg
-
-        mode = fused_cg_mode()
-        if mode is not None:
-            fused = build_fused_pcg(fdm, precond, interpret=(mode == "interpret"))
-    if fused is not None and rhs.dtype == jnp.float32 and not mixed:
-        return fused(rhs, x0=x0, tol=tol, maxiter=maxiter)
-
     pre_op = precond.as_operator() if precond is not None else None
     # complex M mixes the re/im channel pair at axis -3: the CG inner products
     # must then reduce over (channel, Ltau, N) jointly
     sys_ndim = 3 if fdm.complex_hops else 2
     if mixed:
         fdm32 = fdm.astype(jnp.float32)
-        inner = None
-        if fused is not None:
-            inner = lambda r32, it, mi: fused(r32, tol=it, maxiter=mi)
         return cg_solve_mixed(
             fdm.mul_MtM, fdm32.mul_MtM, rhs, precond=pre_op, tol=tol, maxiter=maxiter,
-            sys_ndim=sys_ndim, inner_solver=inner, x0=x0,
+            sys_ndim=sys_ndim, x0=x0,
         )
     return cg_solve(
         fdm.mul_MtM, rhs, precond=pre_op, tol=tol, maxiter=maxiter, sys_ndim=sys_ndim, x0=x0

@@ -1,4 +1,4 @@
-"""Imaginary-time (antiperiodic) Fourier transform as MXU matmuls.
+"""Imaginary-time (antiperiodic) Fourier transform as dense matmuls.
 
 Re-design of /root/reference/src/FourierTransformer.jl: the unitary change of basis
 tau -> omega_n for antiperiodic fermionic boundary conditions,
@@ -6,24 +6,30 @@ tau -> omega_n for antiperiodic fermionic boundary conditions,
     u[w] = (1/sqrt(Ltau)) sum_l exp(-i (2 pi w + pi) l / Ltau) v[l],
 
 which maps the antiperiodic one-slice shift operator to diag(exp(-i phi_w)) with
-phi_w = 2 pi (w + 1/2) / Ltau. The TPU backend exposes no complex dtypes and no
-FFT, so the transform is applied as dense DFT *matmuls* with precomputed real and
-imaginary matrices — (Ltau, Ltau) @ (Ltau, N) contractions that map straight onto
-the MXU and batch over leading axes. Complex fields are (re, im) array pairs.
+phi_w = 2 pi (w + 1/2) / Ltau. The transform is applied as dense DFT *matmuls*
+with precomputed real and imaginary matrices — (Ltau, Ltau) @ (Ltau, N)
+contractions that batch over leading axes, with no complex dtype and no FFT
+call. Complex fields are (re, im) array pairs.
 
-For the problem sizes of this framework (Ltau in the hundreds) the matmul DFT is
-bandwidth-friendly and fuses with the surrounding KPM arithmetic; a factored
-Cooley-Tukey variant (two small matmuls + twiddles) is a planned optimization.
+Every matmul here asks for Precision.HIGHEST: the transforms feed forces and
+observables, and at the backend's default an f32 matmul may run in TF32 on a
+GPU, which keeps about three decimal digits.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from ..utils.pytree import register_pytree_dataclass, static_field
+
+_einsum = functools.partial(jnp.einsum, precision=lax.Precision.HIGHEST)
+_matmul = functools.partial(jnp.matmul, precision=lax.Precision.HIGHEST)
 
 
 def dft_matrices(n: int, sign: float = -1.0, phase_shift: float = 0.0, norm: float = 1.0):
@@ -90,7 +96,7 @@ class FactoredDFT:
 
     For n = n1 * n2 the length-n DFT becomes a (n1 x n1) matmul over the
     decimated axis, a twiddle multiply, and a (n2 x n2) matmul — n (n1 + n2)
-    MACs instead of n^2, while every stage stays MXU-shaped. Falls back to the
+    MACs instead of n^2, while every stage stays a dense matmul. Falls back to the
     dense matrix when n is prime (n1 == 1).
 
     X[k1 + n1 k2] = sum_b W2[k2, b] T[k1, b] sum_a W1[k1, a] x[a n2 + b],
@@ -150,19 +156,19 @@ class FactoredDFT:
         vre = vre.reshape(lead + (n1, n2))
         vim_m = None if vim_m is None else vim_m.reshape(lead + (n1, n2))
         # stage 1: contract the a axis (-2)
-        yre = jnp.einsum("ka,...ab->...kb", self.W1re, vre)
-        yim = jnp.einsum("ka,...ab->...kb", self.W1im, vre)
+        yre = _einsum("ka,...ab->...kb", self.W1re, vre)
+        yim = _einsum("ka,...ab->...kb", self.W1im, vre)
         if vim_m is not None:
-            yre = yre - jnp.einsum("ka,...ab->...kb", self.W1im, vim_m)
-            yim = yim + jnp.einsum("ka,...ab->...kb", self.W1re, vim_m)
+            yre = yre - _einsum("ka,...ab->...kb", self.W1im, vim_m)
+            yim = yim + _einsum("ka,...ab->...kb", self.W1re, vim_m)
         # twiddle (elementwise complex over (k1, b))
         zre = yre * self.Tre - yim * self.Tim
         zim = yre * self.Tim + yim * self.Tre
         # stage 2: contract the b axis (-1); output index k2
-        xre = jnp.einsum("cb,...kb->...kc", self.W2re, zre) - jnp.einsum(
+        xre = _einsum("cb,...kb->...kc", self.W2re, zre) - _einsum(
             "cb,...kb->...kc", self.W2im, zim
         )
-        xim = jnp.einsum("cb,...kb->...kc", self.W2re, zim) + jnp.einsum(
+        xim = _einsum("cb,...kb->...kc", self.W2re, zim) + _einsum(
             "cb,...kb->...kc", self.W2im, zre
         )
         # X[k1 + n1 k2]: order axes (k2, k1) then flatten
@@ -174,7 +180,7 @@ class FactoredDFT:
 @register_pytree_dataclass
 class PackedDFT:
     """Complex DFT along one axis as ONE real matmul in the packed [re | im]
-    basis — the MXU-shaped formulation of the contraction-engine transforms.
+    basis — the formulation of the contraction-engine transforms.
 
     A complex matvec y = W v splits into 4 real matmuls when (re, im) are
     separate planes; packing the planes along the contracted axis turns it into
@@ -183,9 +189,9 @@ class PackedDFT:
         [yr | yi] = [vr | vi] @ [[Wre^T, Wim^T], [-Wim^T, Wre^T]]
 
     with IDENTICAL FLOPs but a contraction dimension of 2n instead of n1/n2-
-    sized factored stages — at the measurement engine's sizes (2n = 480 for the
-    tau axis, 2*Ncells = 288 for the joint space transform) this moves the DFTs
-    from ~1-2% of MXU peak (12-16-wide contractions) to MXU-shaped matmuls.
+    sized factored stages (2n = 480 for the tau axis, 2*Ncells = 288 for the
+    joint space transform at the measurement engine's sizes), so the DFTs run
+    as a few large matmuls instead of many 12-16-wide contractions.
     Real input (vim is None) uses only the top half of the packed matrix.
 
     `matrices` lets the caller supply an arbitrary complex kernel (e.g. the
@@ -232,10 +238,10 @@ class PackedDFT:
         n = self.n
         vre_m = jnp.moveaxis(vre, axis, -1)
         if vim is None:
-            out = vre_m @ self.Wp[:n]
+            out = _matmul(vre_m, self.Wp[:n])
         else:
             vim_m = jnp.moveaxis(vim, axis, -1)
-            out = jnp.concatenate([vre_m, vim_m], axis=-1) @ self.Wp
+            out = _matmul(jnp.concatenate([vre_m, vim_m], axis=-1), self.Wp)
         ure, uim = out[..., :n], out[..., n:]
         return jnp.moveaxis(ure, -1, axis), jnp.moveaxis(uim, -1, axis)
 
@@ -264,10 +270,10 @@ class AxisDFT:
         self, vre: jnp.ndarray, vim: Optional[jnp.ndarray], axis: int
     ) -> Tuple[jnp.ndarray, jnp.ndarray]:
         vre_m = jnp.moveaxis(vre, axis, -1)
-        ure = vre_m @ self.Wre.T
-        uim = vre_m @ self.Wim.T
+        ure = _matmul(vre_m, self.Wre.T)
+        uim = _matmul(vre_m, self.Wim.T)
         if vim is not None:
             vim_m = jnp.moveaxis(vim, axis, -1)
-            ure = ure - vim_m @ self.Wim.T
-            uim = uim + vim_m @ self.Wre.T
+            ure = ure - _matmul(vim_m, self.Wim.T)
+            uim = uim + _matmul(vim_m, self.Wre.T)
         return jnp.moveaxis(ure, -1, axis), jnp.moveaxis(uim, -1, axis)

@@ -1,6 +1,6 @@
 """KPM (Chebyshev) preconditioner for the M^T M conjugate-gradient solves.
 
-Re-design of /root/reference/src/KPMPreconditioner.jl for TPU execution. The
+Re-design of /root/reference/src/KPMPreconditioner.jl for accelerator execution. The
 preconditioner is P^{-1} = [Mbar^T Mbar]^{-1} where Mbar replaces every propagator
 by the tau-averaged Bbar; in the antiperiodic frequency basis (ops/fourier.py)
 Mbar is block diagonal and the per-frequency inverse is a scalar function of Bbar:
@@ -12,7 +12,7 @@ with phi_w = 2 pi (w + 1/2) / Ltau. Eigenvalue bounds of Bbar come from a
 fixed-step Lanczos iteration; the preconditioner self-deactivates when the
 buffered bounds leave (0,1) u (1,2) (KPMPreconditioner.jl:573-594).
 
-TPU mapping (the load-bearing design choices):
+Accelerator mapping (the load-bearing design choices):
 
 - The reference expands each frequency separately with a per-frequency order
   n_w ~ (eps_max - eps_min)(a1/phi + a2) (KPMPreconditioner.jl:711). Here ONE
@@ -25,11 +25,10 @@ TPU mapping (the load-bearing design choices):
   alternatives), the stride matrix T_s(Bbar') is built by an s-step dense matrix
   recurrence at refresh time, and the apply advances s Chebyshev orders per
   dense (s*Ltau, N) x (N, N) matmul via T_{m+s} = 2 T_s T_m - T_{m-s}. Depth
-  falls from C latency-bound checkerboard sweeps (measured ~30 ms/apply at
-  C = 64, BENCH.md round 1) to ~2 sqrt(C) MXU-shaped matmuls.
-- The whole apply runs in float32 by default: a preconditioner is a fixed SPD
-  map, so its precision never affects the f64 CG solution, only (marginally)
-  the iteration count.
+  falls from C sequential checkerboard sweeps to ~2 sqrt(C) dense matmuls.
+- The whole apply runs in float32 by default, with matmuls at the backend's
+  default precision (TF32 on a GPU): a preconditioner is a fixed SPD map, so
+  its precision never affects the CG solution, only the iteration count.
 - Chebyshev coefficients are computed on device as small cosine-transform matmuls
   every update (cheap), instead of the reference's drift-gated host recompute.
 - Everything is real arithmetic: complex frequency-space vectors are (re, im)
@@ -130,19 +129,18 @@ def lanczos_bounds(apply_A, n_sites: int, key, n_steps: int = 20) -> Tuple[jnp.n
 # ----------------------------------------------------------------------
 
 # Auto-crossover to the matrix-free checkerboard recurrence: below this the
-# dense blocked-stride apply's latency advantage wins (measured: the blocked
-# recurrence cut 30 ms/apply to ~sqrt(C) matmuls, BENCH.md round 2); above it
-# the dense N^2-per-stride matmuls and the N^2 refresh densification stop
-# scaling while the checkerboard recurrence stays O(n_colors N) per order.
+# dense blocked-stride apply's shorter sequential depth wins; above it the
+# dense N^2-per-stride matmuls and the N^2 refresh densification stop scaling
+# while the checkerboard recurrence stays O(n_colors N) per order. Not yet
+# tuned on the H100.
 _MATRIX_FREE_MIN_SITES = 1024
 
 
 def _static_plan(Ltau: int, a1_eff: float, a2: float, cap_delta_eps: float, cap_max=None):
     """Static per-frequency order caps + ONE flat recurrence segment.
 
-    An earlier design grouped frequencies into power-of-two tiers with one
-    recurrence per tier; TPU profiling showed the many small sequential steps are
-    latency-bound (BENCH.md), so the plan runs a single blocked Chebyshev
+    One recurrence per frequency tier would be many small sequential steps,
+    so the plan runs a single blocked Chebyshev
     recurrence over the whole (Ltau, N) frequency block padded up to a
     (block_size x n_blocks) grid (coefficients are zero beyond each frequency's
     own order, so higher frequencies simply stop contributing).
@@ -261,7 +259,7 @@ class KPMPreconditioner:
         symmetric propagator as in :263).
 
         matrix_free=None auto-selects: the dense blocked recurrence below
-        _MATRIX_FREE_MIN_SITES (lowest latency at small N, BENCH.md), the
+        _MATRIX_FREE_MIN_SITES (shortest sequential depth at small N), the
         O(N)-per-order checkerboard recurrence above it (complex hoppings
         always take the dense doubled-basis path). SMOQY_KPM_MATRIX_FREE=0/1
         force-overrides."""
@@ -467,7 +465,7 @@ def kpm_update(pre: KPMPreconditioner, fdm: FermionDetMatrix, key) -> KPMPrecond
         BpT = ((BbarT - center * jnp.eye(dim)) / half_safe).astype(dt)
         s = pre.block_size
         # TsT = T_s(Bbar')^T by the dense Chebyshev matrix recurrence (s-1
-        # matmuls, MXU-shaped, once per refresh)
+        # matmuls, once per refresh)
         if s == 1:
             TsT = BpT
         else:
@@ -502,8 +500,9 @@ def _block_cheb(pre: "KPMPreconditioner", u_re, u_im, cre, cim):
         Block_b = [T_{bs+j} u]_{j<s},   Block_{b+1} = 2 Block_b @ TsT - Block_{b-1}
 
     (T_{m+s} = 2 T_s T_m - T_{m-s}). B' is real, so the re/im channels share the
-    recurrence; every step is one MXU matmul instead of a latency-bound
-    checkerboard sweep."""
+    recurrence; every step is one dense matmul instead of a checkerboard sweep.
+    The matmuls run at the backend's default precision on purpose: the
+    preconditioner shapes only the CG iteration count, never the solution."""
     s, nb = pre.block_size, pre.n_blocks
     BpT, TsT = pre.BpT, pre.TsT
     F = cre.shape[0]
@@ -615,10 +614,8 @@ def _mf_cheb(pre: "KPMPreconditioner", u_re, u_im, cre, cim, bbar32=None):
     matrices anywhere (the reference's apply structure,
     KPMPreconditioner.jl:288-352). Sequential depth is the full static order
     cap C (coefficients are zero beyond each frequency's live order, so higher
-    frequencies simply stop contributing); on TPU the per-step work is a
-    handful of gather+elementwise kernels over the whole (2, ..., F, N) block,
-    which is what keeps this bandwidth-bound rather than latency-bound at
-    large N."""
+    frequencies simply stop contributing); the per-step work is a handful of
+    gather+elementwise ops over the whole (2, ..., F, N) block."""
     dt = u_re.dtype
     bbar = bbar32 if bbar32 is not None else pre.bbar
     center = ((pre.hi + pre.lo) * 0.5).astype(dt)
@@ -716,40 +713,6 @@ def kpm_apply(pre: KPMPreconditioner, r: jnp.ndarray) -> jnp.ndarray:
         # the whole recurrence then runs in pre.dtype like the dense path
         bbar32 = jax.tree_util.tree_map(lambda a: a.astype(dt), pre.bbar)
 
-        # fused VMEM-resident recurrence (ops/pallas_fused.py:_kpm_mf_kernel)
-        # covering ALL factorizations: the XLA scan's C sequential
-        # host-scheduled steps are dispatch-latency-bound (~24 ms/apply at
-        # N = 1152, scripts/scaling_bench.py); in-kernel while loops over
-        # order-sorted frequency blocks cut the apply to ~the checkerboard
-        # FLOPs. The asymmetric factorization runs its two conjugate passes
-        # inside ONE kernel (complex coefficients mix the (re, im) rows of a
-        # chunk-paired channel layout); COMPLEX-HOPPING models run the
-        # channel-mixing checkerboard inside the same pair layout
-        # (_kpm_mf_cplx_kernel — the reference is uniformly matrix-free here,
-        # KPMPreconditioner.jl:417-550). Trace-time static gate;
-        # SMOQY_FUSED_KPM=0/interpret overrides.
-        from .pallas_fused import build_kpm_mf_plan, fused_kpm_mode
-
-        fused_plan = None
-        mode = fused_kpm_mode()
-        if mode is not None:
-            fused_plan = build_kpm_mf_plan(
-                pre.caps, pre.bbar.cb.partner, pre.Ltau, pre.n_sites,
-                pre.coefs_re[0].shape[1], interpret=(mode == "interpret"),
-                symmetric=pre.symmetric, complex_hops=pre.complex_pair,
-            )
-
-        def live_orders():
-            # live per-frequency orders (same formula as kpm_update —
-            # coefficients beyond them are exactly zero)
-            phi_eff = jnp.asarray(np.minimum(pre.phi, 2 * np.pi - pre.phi))
-            width = (pre.hi - pre.lo).astype(jnp.float64)
-            orders_raw = jnp.maximum(
-                1,
-                jnp.floor(width * (pre.a1 / phi_eff + pre.a2)).astype(jnp.int32),
-            )
-            return jnp.minimum(orders_raw, jnp.asarray(pre.caps.astype(np.int32)))
-
         def transform(r):
             cre, cim = pre.coefs_re[0], pre.coefs_im[0]
             if pre.complex_pair:
@@ -758,18 +721,7 @@ def kpm_apply(pre: KPMPreconditioner, r: jnp.ndarray) -> jnp.ndarray:
                 # recurrence on (..., 2, F, N) pairs
                 ure, uim = pre.fft.forward(r[..., 0, :, :], r[..., 1, :, :])
                 w = jnp.stack([ure, uim], axis=-3)
-                if fused_plan is not None:
-                    from .pallas_fused import kpm_mf_cplx_apply
-
-                    center = ((pre.hi + pre.lo) * 0.5).astype(dt)
-                    inv_half = (
-                        1.0 / jnp.maximum((pre.hi - pre.lo) * 0.5, 1e-12)
-                    ).astype(dt)
-                    w = kpm_mf_cplx_apply(
-                        fused_plan, bbar32.cb.C, bbar32.cb.S, bbar32.cb.S_im,
-                        bbar32.expV, center, inv_half, w, cre, cim, live_orders(),
-                    )
-                elif pre.symmetric:
+                if pre.symmetric:
                     w = _mf_cheb_pair(pre, w, cre, cim, bbar32)
                 else:
                     w = _mf_cheb_pair(pre, w, cre, -cim, bbar32)
@@ -777,16 +729,7 @@ def kpm_apply(pre: KPMPreconditioner, r: jnp.ndarray) -> jnp.ndarray:
                 zre, zim = pre.fft.inverse(w[..., 0, :, :], w[..., 1, :, :])
                 return jnp.stack([zre, zim], axis=-3)
             ure, uim = pre.fft.forward(r)
-            if fused_plan is not None:
-                from .pallas_fused import kpm_mf_apply
-
-                center = ((pre.hi + pre.lo) * 0.5).astype(dt)
-                inv_half = (1.0 / jnp.maximum((pre.hi - pre.lo) * 0.5, 1e-12)).astype(dt)
-                yre, yim = kpm_mf_apply(
-                    fused_plan, bbar32.cb.C, bbar32.cb.S, bbar32.expV,
-                    center, inv_half, ure, uim, cre, cim, live_orders(),
-                )
-            elif pre.symmetric:
+            if pre.symmetric:
                 yre, yim = _mf_cheb(pre, ure, uim, cre, None, bbar32)
             else:
                 # two passes: conj(coefs) then coefs (KPMPreconditioner.jl:455-459)

@@ -100,7 +100,6 @@ def fermionic_action_and_force(
     mixed: bool = False,
     solve_dtype: str = "float64",
     warm_start: Optional[jnp.ndarray] = None,
-    fused_step: Optional[bool] = None,
 ) -> ForceResult:
     """dS_f/dx = -2 Re([A psi]^T [dM/dx][Lambda psi]) - 2 Re([M^T A psi]^T [dLambda/dx][psi]),
     A = M Lambda (calculate_derivative_fermionic_action!, PFFCalculator.jl:119-158).
@@ -117,115 +116,17 @@ def fermionic_action_and_force(
         def lower(a):
             return a.astype(dt) if hasattr(a, "dtype") and jnp.issubdtype(a.dtype, jnp.floating) else a
 
-        import jax
-
         elph = jax.tree_util.tree_map(lower, elph)
         fdm = fdm.astype(dt)
         Phi = Phi.astype(dt)
         x = x.astype(dt)
         if warm_start is not None:
             warm_start = warm_start.astype(dt)
-    # mixed-precision defect correction is meaningless for an f32 system (the
-    # f32 solve already meets any tol >= f32 resolution — solve_MtM demotes the
-    # flag identically); clearing it here keeps the fused solve+force gate
-    # below reachable from the production driver (mixed_precision=True)
-    mixed = mixed and Phi.dtype == jnp.float64
-    # Fully-fused solve+force path (ops/pallas_fused.py:_pcg_force_kernel): the
-    # whole-solve PCG kernel extended with an in-kernel force-contraction
-    # epilogue — one custom call per leapfrog step replaces the CG solve PLUS
-    # the XLA chain of mul_M / checkerboard walks / mul_Mt / Lambda products.
-    # Unlike the parked two-kernel FusedForce (below), this emits the planes
-    # from the SAME custom call that solved the system, so psi never round-trips
-    # HBM and no extra kernel enters the step's schedule.
-    #
-    # ENABLED ONLY WHERE VERIFIED: in UNVMAPPED programs the toolchain
-    # corrupts the epilogue planes when the kernel's consumers are compiled
-    # into a large enough surrounding program, while the kernel in isolation
-    # — probed stage by stage against interpret mode — is exact, and the
-    # SAME program vmapped over >= 2 walkers is exact vs the XLA chain
-    # (scripts/device_sanity.py). Round-5 forensics NARROWED the trigger:
-    # all six minimal rungs of scripts/miscompile_repro.py (force consumers,
-    # carry-shaped dataflow, a 3-step leapfrog scan) now run CLEAN on the
-    # current toolchain, yet the FULL W=1 production sweep (reflection +
-    # swap + 24-step HMC with warm-start history and carried preconditioner)
-    # still corrupts — acceptance 0.000, 353 iters/solve (rung 7 of the
-    # script). Callers that KNOW they run vmapped multi-walker sweeps pass
-    # fused_step=True (updates/hmc.py via HMCParams.fused_step_force, set by
-    # parallel/walkers.walker_sweep); everything else defaults to the
-    # scan-proven plain fused solve + XLA force chain. SMOQY_FUSED_STEP=0/1
-    # force-overrides either way.
-    if Phi.dtype == jnp.float32 and elph.n_ssh == 0 and not mixed:
-        import os
-
-        from .pallas_fused import build_fused_pcg, fused_cg_mode
-
-        mode = fused_cg_mode()
-        env_fs = os.environ.get("SMOQY_FUSED_STEP")
-        use_fused_step = (env_fs == "1") if env_fs is not None else bool(fused_step)
-        if mode is not None and use_fused_step:
-            fused = build_fused_pcg(fdm, precond, interpret=(mode == "interpret"))
-            if fused is not None and fused.can_force:
-                import numpy as _np
-
-                from .derivatives import holstein_force_from_planes
-
-                Lam = build_lambda(elph, x, fdm.n_sites)
-                rhs = ldiv_lambda_T(Lam, Phi)
-                want_p2 = bool(_np.any(elph.hol_ph_sym))
-                psi_raw, P1, P2, stats = fused.solve_force(
-                    rhs, Lam, x0=warm_start, tol=tol, maxiter=maxiter, want_p2=want_p2
-                )
-                # Sf = Re(Phi^dag psi) = rhs . psi_raw (Lambda is real diagonal)
-                Sf = jnp.sum(rhs * psi_raw)
-                force = holstein_force_from_planes(P1, P2, elph, x, Lam, plan)
-                return ForceResult(
-                    Sf=Sf, force=force.astype(jnp.float64), psi_raw=psi_raw, stats=stats
-                )
-
     res = fermionic_action(
         Phi, elph, fdm, x, precond=precond, tol=tol, maxiter=maxiter, mixed=mixed,
         warm_start=warm_start,
     )
     Lam = build_lambda(elph, x, fdm.n_sites)
-
-    # Fused Pallas contraction (ops/pallas_fused.py:FusedForce): the whole
-    # dS_f/dx chain below collapses to one VMEM-resident kernel on the
-    # production Holstein path (f32 + symmetric + real hoppings + no SSH).
-    # Trace-time static gate; bit-compatible op ordering with the XLA chain.
-    fused_fc = None
-    if Phi.dtype == jnp.float32 and elph.n_ssh == 0:
-        import os
-
-        from .pallas_fused import build_fused_force, fused_cg_mode
-
-        mode = fused_cg_mode()
-        # OPT-IN (default off): in isolation the fused contraction beats the
-        # XLA chain (scan24 8.9 vs 10.8 ms, scripts/force_ab.py), and at W = 8
-        # it is mildly faster end-to-end (144.7 vs 150.3 ms/trajectory, clean
-        # single-executable processes) — but at W = 1 this toolchain's
-        # scheduler degrades the whole trajectory ~6.5x (192.5 vs 29.6 ms,
-        # re-confirmed with artifact-free measurement) in a way not
-        # reproducible in any isolated slice of the step. Tracked as a
-        # Mosaic/XLA interaction, not an algorithmic cost (BENCH.md).
-        if os.environ.get("SMOQY_FUSED_FORCE", "0") != "1":
-            mode = None
-        if mode is not None:
-            import numpy as _np
-
-            want_p2 = bool(_np.any(elph.hol_ph_sym))
-            fused_fc = build_fused_force(
-                fdm, Lam, want_p2, interpret=(mode == "interpret")
-            )
-    if fused_fc is not None:
-        from .derivatives import holstein_force_from_planes
-
-        P1, P2 = fused_fc(res.psi_raw)
-        force = holstein_force_from_planes(P1, P2, elph, x, Lam, plan)
-        return ForceResult(
-            Sf=res.Sf, force=force.astype(jnp.float64), psi_raw=res.psi_raw,
-            stats=res.stats,
-        )
-
     lam_psi = mul_lambda(Lam, res.psi)
     A_psi = fdm.mul_M(lam_psi)
     force = jnp.zeros((elph.n_phonon, elph.Ltau), dtype=Phi.dtype)

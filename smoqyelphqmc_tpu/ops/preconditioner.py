@@ -13,11 +13,8 @@ from .spectral_precond import SpectralPreconditioner, build_spectral, spectral_u
 
 # Auto-select crossover (sites): below this the exact spectral preconditioner's
 # eigh(N) refresh is cheap and its 2-matmul apply is unbeatable; above it the
-# eigh dominates the sweep and the blocked-KPM (Lanczos + dense-stride refresh,
-# ~2 sqrt(C) matmuls per apply) wins. Measured on v5e (BENCH.md scaling table):
-# spectral wins at every benchmarked size through N = 1152 (f32 eigh 45 ms,
-# solve 37 ms vs KPM 15 ms refresh / 93 ms solve); equating 27 solves + 1
-# refresh per sweep puts the crossover near eigh ~ 1.5 s, i.e. N ~ 4000.
+# O(N^3) eigh dominates the sweep and the blocked-KPM (Lanczos + dense-stride
+# refresh, ~2 sqrt(C) matmuls per apply) wins. Not yet tuned on the H100.
 AUTO_SPECTRAL_MAX_SITES = 4000
 
 

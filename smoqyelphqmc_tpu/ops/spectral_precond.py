@@ -1,17 +1,16 @@
 """Spectral preconditioner: exact [Mbar^T Mbar]^{-1} via eigendecomposition.
 
-A TPU-native upgrade of the KPM preconditioner (ops/kpm.py,
+An upgrade of the KPM preconditioner (ops/kpm.py,
 /root/reference/src/KPMPreconditioner.jl): for the SYMMETRIC propagator
 factorization, Bbar = CB Dbar CB^T is a real symmetric N x N matrix, so instead
-of a per-frequency Chebyshev expansion (sequential recurrence, latency-bound on
-TPU) we diagonalize Bbar = Q diag(lam) Q^T ONCE per field update and apply the
+of a per-frequency Chebyshev expansion (a sequential recurrence) we diagonalize Bbar = Q diag(lam) Q^T ONCE per field update and apply the
 per-Matsubara-frequency inverse EXACTLY:
 
     P^{-1} u = F^dag  Q  diag( 1 / (lam^2 - 2 lam cos(phi_w) + 1) )  Q^T  F u,
 
 i.e. tau-FFT -> one dense (N x N) matmul -> elementwise (Ltau x N) scaling ->
-one dense matmul -> inverse FFT. Everything is MXU-shaped with zero sequential
-loops, and the preconditioner is exact (no Lanczos bounds, no order truncation,
+one dense matmul -> inverse FFT. Everything is dense matmuls with zero
+sequential loops, and the preconditioner is exact (no Lanczos bounds, no order truncation,
 no activation heuristics — though we keep a guard for degenerate spectra).
 
 Cost: one eigh(N) per update + 4 DFT matmuls and 2 dense matmuls per apply.
@@ -34,9 +33,8 @@ class SpectralPreconditioner:
     """Eigendecomposition of Bbar + per-frequency inverse filters.
 
     `dtype` selects the APPLY precision: a preconditioner is just a fixed SPD
-    map, so running its matmuls in float32 (native MXU speed) leaves the f64 CG
-    exact while slashing the per-iteration cost; the eigendecomposition itself
-    stays f64."""
+    map, so running its matmuls in float32 leaves the f64 CG exact while
+    cutting the per-iteration cost."""
 
     Q: jnp.ndarray  # (N, N) eigenvectors of Bbar (2N x 2N for complex hoppings)
     filt: jnp.ndarray  # (Ltau, N) 1 / (lam^2 - 2 lam cos(phi_w) + 1)
@@ -53,9 +51,8 @@ class SpectralPreconditioner:
 def build_spectral(fdm: FermionDetMatrix, dtype: str = "float32") -> SpectralPreconditioner:
     """Construct from the current fermion matrix (also the update path).
 
-    In float32 mode the eigendecomposition itself runs in f32 (~20x faster on
-    TPU, measured 15 ms vs 300 ms at N = 288); eigenvector rounding only
-    perturbs the preconditioner, never the solution.
+    In float32 mode the eigendecomposition itself runs in f32; eigenvector
+    rounding only perturbs the preconditioner, never the solution.
 
     For the ASYMMETRIC factorization (Bbar = D CB, not symmetric) the
     preconditioner uses the half-angle symmetrization CB(dtau/2) D CB(dtau/2)^T
@@ -135,7 +132,11 @@ def spectral_update(pre: SpectralPreconditioner, fdm: FermionDetMatrix, key=None
 def spectral_apply(pre: SpectralPreconditioner, r: jnp.ndarray) -> jnp.ndarray:
     """z = P^{-1} r; batch axes broadcast. For real hoppings r is (..., Ltau, N)
     with independent channels; for complex hoppings r is the channel pair
-    (..., 2, Ltau, N) and the filter acts in the doubled (re, im)-site basis."""
+    (..., 2, Ltau, N) and the filter acts in the doubled (re, im)-site basis.
+
+    The Q matmuls run at the backend's default precision (TF32 on a GPU) on
+    purpose: the preconditioner shapes only the CG iteration count, never the
+    solution."""
     in_dtype = r.dtype
     r = r.astype(pre.Q.dtype)
     if not pre.complex_pair:

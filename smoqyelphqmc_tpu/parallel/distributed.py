@@ -1,22 +1,22 @@
 """Multi-host walker scale-out via jax.distributed.
 
 The reference scales by launching MPI ranks, one independent Markov chain each
-(/root/reference/tutorials/holstein_honeycomb_mpi.jl:24-72). The TPU-native
+(/root/reference/tutorials/holstein_honeycomb_mpi.jl:24-72). The JAX
 equivalents, by deployment size:
 
-  - one chip:       vmapped walker axis (parallel/walkers.py)
-  - one host / pod slice over ICI: the same walker axis sharded over
-    `jax.sharding.Mesh` — chains are independent, so XLA inserts ZERO
-    collectives into the update step
-  - multiple hosts over DCN: `jax.distributed.initialize()` + a global mesh
+  - one card:       vmapped walker axis (parallel/walkers.py)
+  - one host's cards: the same walker axis sharded over `jax.sharding.Mesh` —
+    chains are independent; the one collective is the walker mean of the
+    shared preconditioner refresh (parallel/walkers.shared_precond_refresh)
+  - multiple hosts: `jax.distributed.initialize()` + a global mesh
     over all processes' devices. Each host runs the SAME driver program
     (SPMD); walker state is globally sharded; each host writes only the bin
     files of ITS OWN walkers (pID-tagged), exactly like per-rank files in the
     reference, and statistics merging stays a host-side postprocessing step.
 
-There is no point-to-point communication anywhere: like the reference's MPI
-usage, the only cross-process coordination is folder initialization and final
-statistics merging (SURVEY.md section 2d).
+There is no point-to-point communication anywhere: besides that all-reduce,
+like the reference's MPI usage, the only cross-process coordination is folder
+initialization and final statistics merging (SURVEY.md section 2d).
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ def initialize_distributed(
     process_id: Optional[int] = None,
 ) -> None:
     """Bring up the multi-host runtime (call ONCE, before any jax op, on every
-    host). On cloud TPU pods all arguments are auto-detected from the
-    environment; pass them explicitly for manual clusters.
+    host). Pass all three arguments on a cluster that JAX cannot detect on
+    its own, such as one machine with several cards.
 
     Equivalent role to MPI.Init() in the reference's MPI tutorial."""
     kwargs = {}

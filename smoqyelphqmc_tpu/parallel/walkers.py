@@ -3,15 +3,17 @@
 The reference's only parallel strategy is embarrassingly-parallel MPI walkers —
 one rank per chain, collectives only at folder init / checkpoint / statistics
 merging (/root/reference/tutorials/holstein_honeycomb_mpi.jl:24-72, SURVEY.md
-section 2d). The TPU-native replacement:
+section 2d). The accelerator replacement:
 
   - a leading walker axis on QMCState, advanced by `jax.vmap`ed update kernels
-    (one traced program, W chains in flight — on one chip this also batches all
-    the CG solves together);
-  - for multiple chips, the walker axis is sharded over a 1-D
-    `jax.sharding.Mesh`; since chains are independent, XLA partitions the
-    computation with zero collectives (statistics merging happens on host at
-    postprocessing, exactly like the reference's per-rank files).
+    (one traced program, W chains in flight — on one card this also batches
+    all the CG solves together);
+  - for multiple cards, the walker axis is sharded over a 1-D
+    `jax.sharding.Mesh`. The chains are independent, so the updates and
+    measurements need no communication; the one collective is the walker
+    mean in `shared_precond_refresh`, which becomes an all-reduce across
+    cards (statistics merging happens on host at postprocessing, exactly like
+    the reference's per-rank files).
 
 RNG: per-walker keys from `jax.random.split` replace per-rank seeds."""
 
@@ -45,6 +47,13 @@ def init_walker_states(ctx: QMCContext, base_state: QMCState, n_walkers: int, se
     return QMCState(x=x, key=keys, precond=precond)
 
 
+def walker_device_count(n_walkers: int, n_devices: int) -> int:
+    """Largest device count <= n_devices that divides n_walkers evenly: the
+    walker axis is sharded in equal blocks, so a mesh whose size does not
+    divide W cannot hold it."""
+    return max(d for d in range(1, min(n_walkers, n_devices) + 1) if n_walkers % d == 0)
+
+
 def walker_mesh(n_devices: Optional[int] = None) -> Mesh:
     devs = jax.devices()
     n = n_devices or len(devs)
@@ -65,11 +74,11 @@ def shared_precond_refresh(ctx: QMCContext, states: QMCState) -> QMCState:
     """Refresh the carried preconditioner ONCE from the WALKER-MEAN propagator
     factors and broadcast it to every walker.
 
-    A batched (vmapped) eigh serializes poorly on TPU (BENCH.md: 45 ms at W=8
-    vs 14 ms for one), while the tau-averaged Bbar differs across equilibrated
-    walkers by the same order as the tau fluctuations it already averages over
-    — measured CG iteration counts are IDENTICAL (13.6 vs 13.7) with the shared
-    preconditioner, at 1/W the refresh cost. Preconditioner quality only
+    One eigh replaces W batched ones, while the tau-averaged Bbar differs
+    across equilibrated walkers by the same order as the tau fluctuations it
+    already averages over — CG iteration counts at the headline configuration
+    came out the same (13.6 vs 13.7) with the shared preconditioner, at 1/W
+    the refresh cost. Preconditioner quality only
     affects iteration count, never the sampled distribution."""
     if states.precond is None:
         return states
@@ -183,18 +192,6 @@ def walker_sweep(
     if shared_precond and states.precond is not None:
         states = shared_precond_refresh(ctx, states)
         hmc_params = hmc_params.replace(refresh_precond_at_start=False)
-    # the fused solve+force epilogue is verified correct ONLY in vmapped
-    # multi-walker programs (>= 2 walkers); the unvmapped lowering corrupts
-    # the planes on this toolchain (ops/pff.py gate comment). It is ALSO
-    # disabled in PER-WALKER refresh mode: each walker then carries its own
-    # spectral eigenbasis, the vmapped per-walker Q planes push the epilogue
-    # kernel's scoped-VMEM stack just past the 16 MiB limit at the headline
-    # config (Mosaic compile OOM by 120 KiB, W=8 L=12 Ltau=240 — found by
-    # scripts/precond_stress.py round 5); the fallback mode rides the plain
-    # fused solve + XLA force chain instead.
-    n_walkers = jax.tree_util.tree_leaves(states.x)[0].shape[0]
-    if n_walkers >= 2 and shared_precond:
-        hmc_params = hmc_params.replace(fused_step_force=True)
 
     def one(state):
         state, r = reflection_update(ctx, state)

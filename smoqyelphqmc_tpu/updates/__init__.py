@@ -1,5 +1,5 @@
 from .context import QMCContext, QMCState, make_fdm, initialize_qmc
-from .hmc import HMCParams, hmc_update, hmc_update_ghost
+from .hmc import HMCParams, hmc_update
 from .global_updates import reflection_update, swap_update, radial_update
 from .mu_tuner import MuTunerState, init_mu_tuner, update_chemical_potential
 
@@ -10,7 +10,6 @@ __all__ = [
     "initialize_qmc",
     "HMCParams",
     "hmc_update",
-    "hmc_update_ghost",
     "reflection_update",
     "swap_update",
     "radial_update",

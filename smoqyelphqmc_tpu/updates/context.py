@@ -1,6 +1,6 @@
 """Simulation context + Markov-chain state pytrees.
 
-The TPU-native replacement for the reference's web of mutable structs
+The accelerator-side replacement for the reference's web of mutable structs
 (FermionPathIntegral / FermionDetMatrix / PFFCalculator / preconditioner /
 updater all updated in place): here
 
@@ -49,8 +49,8 @@ class QMCContext:
     # Off by default: a global move changes one phonon mode out of N, so Bbar (a
     # tau- AND site-averaged object) barely moves, and the preconditioner only
     # affects CG iteration count, never the sampled distribution. The HMC update
-    # still refreshes once per trajectory. Saves 2 of 3 refreshes per sweep —
-    # the dominant cost when the refresh is an eigendecomposition (BENCH.md).
+    # still refreshes once per trajectory. Saves 2 of 3 refreshes per sweep,
+    # which matters when the refresh is an eigendecomposition.
     refresh_precond_global: bool = static_field(default=False)
 
     @property
@@ -73,8 +73,7 @@ def make_fdm(ctx: QMCContext, x: jnp.ndarray, dtype=None) -> FermionDetMatrix:
     """Propagator factors at phonon field x.
 
     dtype='float32' casts (V, t) BEFORE exponentiation so the exp/cosh/sinh
-    transcendentals run in hardware f32 instead of software-emulated f64 — the
-    dominant per-leapfrog-step cost on TPU. Only the force path uses this
+    transcendentals run in f32. Only the force path uses this
     (forces shape proposals; Metropolis exactness rests on the f64 endpoint
     actions, which keep the default f64 tables). exp(f32 V) and
     exp(f64 V).astype(f32) differ by <= 1 ulp f32, far below the force solve
@@ -87,7 +86,6 @@ def make_fdm(ctx: QMCContext, x: jnp.ndarray, dtype=None) -> FermionDetMatrix:
             t=fpi.t.astype(dt),
             t_im=None if fpi.t_im is None else fpi.t_im.astype(dt),
             dtau=fpi.dtau, Ltau=fpi.Ltau, n_sites=fpi.n_sites,
-            static_hops=fpi.static_hops,
         )
     return FermionDetMatrix.from_path_integral(fpi, ctx.structure, symmetric=ctx.symmetric)
 

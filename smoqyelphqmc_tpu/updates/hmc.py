@@ -51,29 +51,14 @@ class HMCParams:
     # (driver-level cadence control: staleness affects only CG iteration count,
     # never the sampled distribution)
     refresh_precond_at_start: bool = static_field(default=True)
-    # enable the fused solve+force epilogue kernel for the trajectory solves.
-    # ONLY safe in vmapped multi-walker sweeps (set by walker_sweep when
-    # n_walkers >= 2): the unvmapped lowering deterministically corrupts the
-    # force planes on this toolchain (ops/pff.py gate comment;
-    # scripts/device_sanity.py). SMOQY_FUSED_STEP=0/1 overrides.
-    # Fused in-kernel solve+force epilogue (ops/pff.py gate): ON only in
-    # vmapped multi-walker sweeps (parallel/walkers.walker_sweep sets it).
-    # Round-5 status of the unvmapped miscompile: ALL SIX minimal-repro
-    # rungs now pass on the current toolchain (scripts/miscompile_repro.py),
-    # but the FULL W=1 production sweep still corrupts (acceptance 0.000,
-    # 353 iters/solve, on-device probe — WORKLOG round 5), so the trigger
-    # needs context beyond a 3-step scan; rung 7 in the repro script pins
-    # it. Exactness is never at stake (forces only shape proposals), the
-    # failure mode is acceptance collapse. SMOQY_FUSED_STEP=0/1 overrides.
-    fused_step_force: bool = static_field(default=False)
     # warm-start extrapolation order for the trajectory force solves: 2 =
     # linear chronological extrapolation of the previous two solutions, 3 =
     # quadratic through the previous three (leapfrog's uniform spacing only;
     # Omelyan always uses linear). Higher order cancels one more power of dt
     # in the warm-start residual at the cost of a larger amplification of the
-    # tol-level solve noise; committed device A/B at the headline config
-    # under the honest barrier: 9.36 / 8.22 / 10.12 iters/solve for orders
-    # 2 / 3 / 4 (BENCH.md "Warm-start extrapolation order A/B") — 3 default.
+    # tol-level solve noise; order 3 gave the fewest CG iterations per solve
+    # at the headline config in an A/B of orders 2 / 3 / 4, so it is the
+    # default.
     warm_order: int = static_field(default=3)
 
     def timestep(self):
@@ -96,14 +81,8 @@ def hmc_update(
     state: QMCState,
     params: HMCParams,
     recenter: Optional[Callable[[jnp.ndarray], jnp.ndarray]] = None,
-    phi_scale: Optional[jnp.ndarray] = None,
 ) -> tuple[QMCState, HMCStats]:
-    """One EFA-PFF-HMC trajectory (hmc_update!, EFAPFFHMCUpdater.jl:102-279).
-
-    phi_scale is the ghost-walker hook (hmc_update_ghost): a traced scalar
-    multiplying the freshly-sampled pseudofermion field. 1.0 is an exact
-    no-op; 0.0 makes every trajectory solve see a zero rhs (instant CG
-    convergence) while keeping the vmapped program shape identical."""
+    """One EFA-PFF-HMC trajectory (hmc_update!, EFAPFFHMCUpdater.jl:102-279)."""
     elph, efa = ctx.elph, ctx.efa
     # trace-time flag: a non-identity recenter acts in tau space, forcing a
     # re-transform of x after each drift (see omega-space trajectory below)
@@ -124,15 +103,11 @@ def hmc_update(
         precond = refresh_preconditioner(precond, fdm0, k_pre0)
 
     Phi, Sf0 = sample_pseudofermion_fields(k_phi, elph, fdm0, x0)
-    if phi_scale is not None:
-        Phi = Phi * phi_scale
-        Sf0 = Sf0 * phi_scale
     Sb0 = bosonic_action(elph, x0)
     # the trajectory carries (x, p) in omega space: the exact drift is then an
     # elementwise rotation, and each leapfrog step pays only one inverse DFT
     # (x to tau for the force) + one forward DFT (the force kick) instead of
-    # four full transforms per evolve() — the f64 DFT matmuls are emulated on
-    # TPU and dominated the per-step cost (BENCH.md)
+    # four full transforms per evolve()
     pw, K0 = efa.sample_momentum_omega(k_mom)
     H0 = Sf0 + Sb0 + K0
 
@@ -154,9 +129,8 @@ def hmc_update(
         jnp.zeros(warm_shape, dtype=jnp.dtype(ctx.force_dtype)) for _ in range(n_hist)
     )
 
-    # force-path propagator tables in f32: the exp/cosh/sinh transcendentals are
-    # software-emulated in f64 on TPU and dominate the per-leapfrog-step cost;
-    # forces only shape the proposal (endpoint actions below keep f64 tables)
+    # force-path propagator tables in the force dtype: forces only shape the
+    # proposal (endpoint actions below keep f64 tables)
     force_tab_dt = None if jnp.dtype(ctx.force_dtype) == jnp.float64 else ctx.force_dtype
     # when the force path is f32, the per-step DFT pair (omega -> tau for the
     # force field, tau -> omega for the kick) also runs in f32: both transforms
@@ -192,7 +166,7 @@ def hmc_update(
             Phi, elph, fdm, x, ctx.plan,
             precond=precond, tol=ctx.tol_force, maxiter=ctx.maxiter,
             mixed=ctx.mixed_precision, solve_dtype=ctx.force_dtype,
-            warm_start=psi_warm, fused_step=params.fused_step_force,
+            warm_start=psi_warm,
         )
         hist = (res.psi_raw.astype(hist[0].dtype),) + hist[:-1]
         force = res.force
@@ -216,10 +190,9 @@ def hmc_update(
 
     # The preconditioner rides the scan carry ONLY when it is actually
     # refreshed inside the trajectory: carrying the (large) loop-invariant
-    # preconditioner pytree through lax.scan materialized ~87 device copies
-    # per leapfrog step (~11 ms of the 69 ms W=8 trajectory, device trace) —
-    # XLA double-buffers every carried leaf instead of recognizing the
-    # invariance. In the production path (refresh_precond_every_step=False)
+    # preconditioner pytree through lax.scan materializes device copies of
+    # every carried leaf per leapfrog step — XLA double-buffers each one
+    # instead of recognizing the invariance. In the production path (refresh_precond_every_step=False)
     # the scan closes over it and the carry holds a dummy scalar.
     carry_precond = params.refresh_precond_every_step
     precond_closed = precond
@@ -369,47 +342,3 @@ def hmc_update(
     )
     return QMCState(x=x_new, key=key, precond=precond), stats
 
-
-def hmc_update_ghost(
-    ctx: QMCContext,
-    state: QMCState,
-    params: HMCParams,
-    recenter: Optional[Callable[[jnp.ndarray], jnp.ndarray]] = None,
-) -> tuple[QMCState, HMCStats]:
-    """Single-chain HMC routed THROUGH the fused solve+force epilogue by
-    vmapping a 2-walker program whose second walker is a zero-Phi ghost.
-
-    The fused epilogue kernel (ops/pallas_fused.py:_pcg_force_kernel) is
-    verified correct only in vmapped multi-walker (>= 2) programs — the
-    unvmapped lowering deterministically corrupts the force planes on this
-    toolchain (ops/pff.py gate comment; scripts/device_sanity.py). This
-    wrapper buys the single-chain path the proven vmap(2) lowering at near-
-    zero marginal cost: the ghost is a copy of the real walker whose
-    pseudofermion field is scaled to exactly zero, so each of its in-kernel
-    CG chunks sees |b| = 0 and exits the Krylov loop after ZERO iterations
-    (every Pallas grid chunk iterates to its own convergence) — the ghost
-    pays only the vmapped elementwise glue, which at this batch size is
-    latency- not throughput-bound.
-
-    The real walker's chain is exact: its Phi is scaled by 1.0 (a float
-    no-op) and its program is identical to the verified W >= 2 walker path.
-    The ghost's outputs (second vmap row) are discarded."""
-    if state.precond is not None and params.refresh_precond_at_start:
-        # refresh ONCE, unvmapped (a vmapped eigh serializes poorly on TPU —
-        # parallel/walkers.shared_precond_refresh) and share it with the ghost
-        pre = refresh_preconditioner(
-            state.precond, make_fdm(ctx, state.x), jax.random.fold_in(state.key, 17)
-        )
-        state = QMCState(x=state.x, key=state.key, precond=pre)
-        params = params.replace(refresh_precond_at_start=False)
-    params = params.replace(fused_step_force=True)
-    pair = jax.tree_util.tree_map(lambda a: jnp.stack([a, a]), state)
-    scale = jnp.asarray([1.0, 0.0])
-    new_pair, stats = jax.vmap(
-        lambda s, sc: hmc_update(ctx, s, params, recenter=recenter, phi_scale=sc)
-    )(pair, scale)
-    first = lambda a: a[0]
-    return (
-        jax.tree_util.tree_map(first, new_pair),
-        jax.tree_util.tree_map(first, stats),
-    )

@@ -1,7 +1,7 @@
 """Subprocess entry point for the 2-process multi-host driver test.
 
 Each process is one 'host' of a jax.distributed cluster (CPU backend, 2 virtual
-devices per process — the CI stand-in for one TPU host per process). Both run
+devices per process — the CI stand-in for one accelerator host per process). Both run
 the SAME driver program SPMD; the driver shards the walker axis over the global
 4-device mesh and each process writes only its own walkers' bin files — the
 per-rank output-file scheme of the reference's MPI tutorial
@@ -39,7 +39,9 @@ def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/smoqy_jax_cache")
+    from smoqyelphqmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 

@@ -34,27 +34,24 @@ def test_runtime_limit_interrupt_and_resume(tmp_path):
     meta1 = run_simulation(sim_info, tbm, elph_model, spec, cfg(0.0))
     cps = glob.glob(os.path.join(sim_info.datafolder, "checkpoint_pID-0_slot-*.pkl"))
     assert cps, "no checkpoint written on interrupt"
-    assert not os.path.exists(os.path.join(sim_info.datafolder, "stats.h5"))
+    assert not os.path.exists(os.path.join(sim_info.datafolder, "stats.npz"))
 
     # second run with the same sim_info: resumes and completes
     sim_info2 = SimulationInfo(filepath=str(tmp_path), datafolder_prefix="resume_test", sID=1)
     meta2 = run_simulation(sim_info2, tbm, elph_model, spec, cfg(np.inf))
-    assert os.path.exists(os.path.join(sim_info2.datafolder, "stats.h5"))
+    assert os.path.exists(os.path.join(sim_info2.datafolder, "stats.npz"))
     # completed runs delete their checkpoints
     cps = glob.glob(os.path.join(sim_info2.datafolder, "checkpoint_pID-0_slot-*.pkl"))
     assert not cps
 
 
 def _bin_contents(datafolder):
-    import h5py
+    from smoqyelphqmc_tpu.io import archive
 
     out = {}
-    for path in sorted(glob.glob(os.path.join(datafolder, "bins", "bin-*_pID-*.h5"))):
-        with h5py.File(path, "r") as f:
-            for cat in ("global", "local", "correlations", "composite"):
-                if cat in f:
-                    for name, ds in f[cat].items():
-                        out[(os.path.basename(path), cat, name)] = ds[()]
+    for path in sorted(glob.glob(os.path.join(datafolder, "bins", "bin-*_pID-*.npz"))):
+        for key, val in archive.datasets(archive.load(path)).items():
+            out[(os.path.basename(path), key)] = val
     return out
 
 
@@ -117,12 +114,12 @@ def test_multiwalker_interrupt_and_resume(tmp_path):
     run_simulation(sim_info, tbm, elph_model, spec, cfg(0.0))
     cps = glob.glob(os.path.join(sim_info.datafolder, "checkpoint_pID-0_slot-*.pkl"))
     assert cps, "no multiwalker checkpoint written on interrupt"
-    assert not os.path.exists(os.path.join(sim_info.datafolder, "stats.h5"))
+    assert not os.path.exists(os.path.join(sim_info.datafolder, "stats.npz"))
 
     sim_info2 = SimulationInfo(filepath=str(tmp_path), datafolder_prefix="mw_resume", sID=1)
     meta = run_simulation(sim_info2, tbm, elph_model, spec, cfg(np.inf))
-    assert os.path.exists(os.path.join(sim_info2.datafolder, "stats.h5"))
+    assert os.path.exists(os.path.join(sim_info2.datafolder, "stats.npz"))
     for w in (0, 1):
-        bins = glob.glob(os.path.join(sim_info2.datafolder, "bins", f"bin-*_pID-{w}.h5"))
+        bins = glob.glob(os.path.join(sim_info2.datafolder, "bins", f"bin-*_pID-{w}.npz"))
         assert len(bins) == 2, (w, bins)
     assert not glob.glob(os.path.join(sim_info2.datafolder, "checkpoint_pID-*_slot-*.pkl"))

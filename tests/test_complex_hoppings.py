@@ -265,7 +265,7 @@ def complex_ssh_chain_model(L=4, t=1.0, mu=0.1, Omega=1.0, alpha=0.4 + 0.25j,
 @pytest.mark.parametrize("t_phase", [0.0, 0.5])
 def test_complex_ssh_forces_finite_difference(symmetric, t_phase, rng):
     """Complex SSH coupling constants: action derivative vs central differences
-    (VERDICT round-1 item 9: the last model-capability gap)."""
+    (the last model-capability gap)."""
     from smoqyelphqmc_tpu.ops.derivatives import build_force_plan
     from smoqyelphqmc_tpu.ops.pff import (
         fermionic_action,

@@ -53,8 +53,8 @@ def test_driver_end_to_end_holstein(tmp_path):
     )
     d = sim_info.datafolder
     assert os.path.exists(os.path.join(d, "model_summary.toml"))
-    assert os.path.exists(os.path.join(d, "binned_data.h5"))
-    assert os.path.exists(os.path.join(d, "stats.h5"))
+    assert os.path.exists(os.path.join(d, "binned_data.npz"))
+    assert os.path.exists(os.path.join(d, "stats.npz"))
     assert os.path.exists(os.path.join(d, "global_stats.csv"))
     assert any(f.startswith("simulation_info") for f in os.listdir(d))
     assert 0.0 <= meta["hmc_acceptance_rate"] <= 1.0
@@ -65,17 +65,10 @@ def test_driver_end_to_end_holstein(tmp_path):
     assert np.isfinite(R.real) and np.isfinite(dR)
 
 
-def _h5_tree(path):
-    import h5py
+def _archive_tree(path):
+    from smoqyelphqmc_tpu.io import archive
 
-    out = {}
-    with h5py.File(path, "r") as f:
-        def visit(name, obj):
-            if isinstance(obj, h5py.Dataset):
-                out[name] = np.asarray(obj)
-
-        f.visititems(visit)
-    return out
+    return archive.datasets(archive.load(path))
 
 
 def test_sweep_batching_matches_unbatched(tmp_path):
@@ -92,7 +85,7 @@ def test_sweep_batching_matches_unbatched(tmp_path):
             L=2, beta=0.5, dtau=0.1, alpha=0.5,
         )
         metas[k] = meta
-        trees[k] = _h5_tree(os.path.join(sim_info.datafolder, "binned_data.h5"))
+        trees[k] = _archive_tree(os.path.join(sim_info.datafolder, "binned_data.npz"))
     assert metas[1]["hmc_acceptance_rate"] == metas[4]["hmc_acceptance_rate"]
     assert metas[1]["n_first_measured_batch"] == 1
     # first measured batch clips to the bin boundary: min(k, bin_size) = 3
@@ -123,8 +116,8 @@ def test_sweep_batching_multiwalker(tmp_path):
             L=2, beta=0.5, dtau=0.1, alpha=0.5,
         )
         metas[k] = meta
-        trees[k] = _h5_tree(
-            os.path.join(sim_info.with_pID(0).datafolder, "binned_data.h5")
+        trees[k] = _archive_tree(
+            os.path.join(sim_info.with_pID(0).datafolder, "binned_data.npz")
         )
     assert metas[1]["hmc_acceptance_rate"] == metas[3]["hmc_acceptance_rate"]
     assert trees[1].keys() == trees[3].keys()
@@ -137,7 +130,7 @@ def test_sweep_batching_multiwalker(tmp_path):
 
 def test_driver_ssh_chain(tmp_path):
     sim_info, meta = _run(tmp_path, chain_model, L=4, beta=0.5, dtau=0.1, alpha=0.4, ssh=True)
-    assert os.path.exists(os.path.join(sim_info.datafolder, "stats.h5"))
+    assert os.path.exists(os.path.join(sim_info.datafolder, "stats.npz"))
 
 
 @pytest.mark.slow
@@ -184,7 +177,7 @@ def test_driver_acceptance_targeted_dt_multiwalker(tmp_path):
 
 def test_driver_kpm_diagnostics_in_metadata(tmp_path):
     """A KPM-preconditioned run records the preconditioner's self-diagnostics
-    in the metadata -> simulation_info.toml (VERDICT r3 item 6; the reference
+    in the metadata -> simulation_info.toml (the reference
     warns on deactivation, KPMPreconditioner.jl:573-594)."""
     sim_info, meta = _run(
         tmp_path, chain_model,

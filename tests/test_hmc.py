@@ -211,43 +211,3 @@ def test_omelyan_accepts_with_third_the_steps():
         assert bool(stats.converged)
         acc += int(stats.accepted)
     assert acc >= 6
-
-
-def test_hmc_ghost_matches_plain_without_preconditioner():
-    """hmc_update_ghost's real-walker row must reproduce the unvmapped
-    hmc_update exactly when no preconditioner is carried (identical math:
-    phi_scale = 1.0 is a float no-op and vmap does not change the
-    per-element computation on CPU)."""
-    from smoqyelphqmc_tpu.updates import hmc_update_ghost
-
-    geo, tbm, tbp, _, elph = honeycomb_model(L=2, beta=1.0, dtau=0.1, alpha=0.6)
-    ctx, state = initialize_qmc(tbp, elph, seed=3, tol=1e-10, use_preconditioner=False)
-    params = HMCParams(Nt=6)
-    s_plain, h_plain = jax.jit(lambda s: hmc_update(ctx, s, params))(state)
-    s_ghost, h_ghost = jax.jit(lambda s: hmc_update_ghost(ctx, s, params))(state)
-    assert bool(h_plain.converged) and bool(h_ghost.converged)
-    assert bool(h_plain.accepted) == bool(h_ghost.accepted)
-    np.testing.assert_allclose(
-        float(h_ghost.delta_H), float(h_plain.delta_H), rtol=1e-6, atol=1e-8
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_ghost.x), np.asarray(s_plain.x), rtol=1e-7, atol=1e-9
-    )
-
-
-def test_hmc_ghost_healthy_with_preconditioner():
-    """Ghost path through the carried-preconditioner branch (shared unvmapped
-    refresh + vmap(2) trajectory): chain stays converged and finite."""
-    from smoqyelphqmc_tpu.updates import hmc_update_ghost
-
-    geo, tbm, tbp, _, elph = honeycomb_model(L=2, beta=1.0, dtau=0.1, alpha=0.6)
-    ctx, state = initialize_qmc(tbp, elph, seed=5, tol=1e-8)
-    params = HMCParams(Nt=8)
-    step = jax.jit(lambda s: hmc_update_ghost(ctx, s, params))
-    acc = 0
-    for _ in range(10):
-        state, stats = step(state)
-        assert bool(stats.converged)
-        acc += int(stats.accepted)
-    assert acc >= 5, f"low acceptance: {acc}/10"
-    assert np.all(np.isfinite(np.asarray(state.x)))

@@ -3,9 +3,9 @@ correlation ratios on synthetic data."""
 
 import os
 
-import h5py
 import numpy as np
 
+from smoqyelphqmc_tpu.io import archive
 from smoqyelphqmc_tpu.io.correlation_ratio import compute_correlation_ratio
 from smoqyelphqmc_tpu.io.measurements_io import merge_bins, process_measurements, write_measurement_bin
 from smoqyelphqmc_tpu.io.simulation_info import SimulationInfo, initialize_datafolder
@@ -41,9 +41,9 @@ def test_stats_mean_and_stderr(tmp_path):
     sim, spec, data = _synthetic_bins(tmp_path)
     process_measurements(sim.datafolder, spec=spec)
     scalars = np.asarray([d[0] for d in data])
-    with h5py.File(os.path.join(sim.datafolder, "stats.h5")) as f:
-        mean = f["global/density/mean"][()]
-        err = f["global/density/std"][()]
+    f = archive.load(os.path.join(sim.datafolder, "stats.npz"))
+    mean = f["global/density/mean"]
+    err = f["global/density/std"]
     np.testing.assert_allclose(mean.real, scalars.mean(), rtol=1e-12)
     np.testing.assert_allclose(
         err.real, scalars.std(ddof=1) / np.sqrt(len(scalars)), rtol=1e-12
@@ -54,8 +54,9 @@ def test_momentum_space_is_fft(tmp_path):
     sim, spec, data = _synthetic_bins(tmp_path)
     process_measurements(sim.datafolder, spec=spec)
     corrs = np.stack([d[1] for d in data])  # (nb, 1, Lt+1, L)
-    with h5py.File(os.path.join(sim.datafolder, "stats.h5")) as f:
-        mean_q = f["correlations/density/mean_q"][()]
+    mean_q = archive.load(os.path.join(sim.datafolder, "stats.npz"))[
+        "correlations/density/mean_q"
+    ]
     ref = np.fft.fftn(corrs, axes=(3,)).mean(axis=0)
     np.testing.assert_allclose(mean_q, ref, atol=1e-12)
 
@@ -122,7 +123,7 @@ def test_csv_export_surface(tmp_path):
     # rewrite one bin so the merged attrs carry the new flags
     import glob as _glob
 
-    for p in _glob.glob(os.path.join(sim.bins_folder, "*.h5")):
+    for p in _glob.glob(os.path.join(sim.bins_folder, "*.npz")):
         os.remove(p)
     for b, (scalar, corr) in enumerate(data):
         tree = {

@@ -11,7 +11,9 @@ from smoqyelphqmc_tpu.ops.fermion_det import FermionDetMatrix
 from smoqyelphqmc_tpu.ops.spectral_precond import build_spectral
 from smoqyelphqmc_tpu.updates import HMCParams, hmc_update, initialize_qmc
 
-from _models import honeycomb_model
+import pytest
+
+from _models import chain_model, honeycomb_model
 
 
 def _fdm(**kw):
@@ -59,15 +61,25 @@ def test_mixed_precision_hmc():
     assert acc >= 2
 
 
-def test_f32_force_solve_matches_f64(rng):
-    """solve_dtype='float32' forces agree with f64 to f32 resolution."""
+@pytest.mark.parametrize(
+    "model_fn,kw",
+    [
+        (honeycomb_model, dict(L=2, beta=1.0, dtau=0.1, alpha=0.6)),
+        (chain_model, dict(L=6, beta=0.8, alpha=0.4)),
+        (honeycomb_model, dict(L=2, beta=0.6, alpha=0.3, ph_sym=False)),
+    ],
+)
+def test_f32_force_solve_matches_f64(model_fn, kw, rng):
+    """solve_dtype='float32' forces agree with f64 to f32 resolution, for the
+    chain, the honeycomb and the honeycomb without the particle-hole
+    symmetric coupling form."""
     from smoqyelphqmc_tpu.ops.pff import (
         fermionic_action_and_force,
         sample_pseudofermion_fields,
     )
     from smoqyelphqmc_tpu.updates.context import initialize_qmc, make_fdm
 
-    geo, tbm, tbp, _, elph = honeycomb_model(L=2, beta=1.0, dtau=0.1, alpha=0.6)
+    geo, tbm, tbp, _, elph = model_fn(**kw)
     ctx, state = initialize_qmc(tbp, elph, seed=0, tol=1e-10)
     fdm = make_fdm(ctx, state.x)
     Phi, _ = sample_pseudofermion_fields(jax.random.PRNGKey(1), elph, fdm, state.x)

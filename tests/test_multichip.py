@@ -84,11 +84,11 @@ def test_driver_n_walkers(tmp_path):
     sim_info = SimulationInfo(filepath=str(tmp_path), datafolder_prefix="walker_driver")
     meta = run_simulation(sim_info, tbm, elph_model, spec, cfg)
     assert meta["n_walkers"] == 2
-    assert os.path.exists(os.path.join(sim_info.datafolder, "stats.h5"))
+    assert os.path.exists(os.path.join(sim_info.datafolder, "stats.npz"))
     # both walkers contributed bin files
     import glob
 
-    bins = glob.glob(os.path.join(sim_info.bins_folder, "bin-*_pID-*.h5"))
+    bins = glob.glob(os.path.join(sim_info.bins_folder, "bin-*_pID-*.npz"))
     pids = {p.split("pID-")[1].split(".")[0] for p in bins}
     assert pids == {"0", "1"}
 
@@ -114,7 +114,7 @@ def test_driver_n_walkers_with_mu_tuning(tmp_path):
     meta = run_simulation(sim_info, tbm, elph_model, spec, cfg)
     assert len(meta["final_mu_per_walker"]) == 2
     assert all(np.isfinite(v) for v in meta["final_mu_per_walker"])
-    assert os.path.exists(os.path.join(sim_info.datafolder, "stats.h5"))
+    assert os.path.exists(os.path.join(sim_info.datafolder, "stats.npz"))
     # per-walker density-tuning profiles (save_density_tuning_profile per pID)
     for w in (0, 1):
         path = os.path.join(sim_info.datafolder, f"density_tuning_profile_pID-{w}.csv")

@@ -1,6 +1,6 @@
 """Multi-host walker-fleet execution: two REAL processes coordinated by
 jax.distributed (localhost coordinator), each owning half the walkers of one
-driver run — the TPU-native equivalent of the reference's MPI walker launch
+driver run — the JAX equivalent of the reference's MPI walker launch
 (/root/reference/tutorials/holstein_honeycomb_mpi.jl:17-72).
 
 The single-process helper API is covered in test_multichip.py; this file proves
@@ -66,7 +66,7 @@ def test_two_process_walker_fleet(tmp_path):
     # --- every walker's bin stream exists (written by exactly the owning host:
     # the multihost accumulate path reads ONLY addressable shards and raises on
     # a non-owned walker id, so completion itself proves ownership discipline) -
-    bins = glob.glob(os.path.join(datafolder, "bins", "bin-*_pID-*.h5"))
+    bins = glob.glob(os.path.join(datafolder, "bins", "bin-*_pID-*.npz"))
     pids = sorted({p.split("pID-")[1].split(".")[0] for p in bins})
     assert pids == ["0", "1", "2", "3"], pids
     assert len(bins) == 4 * 2  # W walkers x N_bins
@@ -83,44 +83,38 @@ def test_two_process_walker_fleet(tmp_path):
     assert sorted(mu_reported) == [0, 1, 2, 3]
     assert all(np.isfinite(v) for v in mu_reported.values())
 
-    # --- process-0 merge: one stats.h5 built from ALL hosts' bins -------------
-    stats = os.path.join(datafolder, "stats.h5")
+    # --- process-0 merge: one stats.npz built from ALL hosts' bins ------------
+    stats = os.path.join(datafolder, "stats.npz")
     assert os.path.exists(stats)
-    import h5py
+    from smoqyelphqmc_tpu.io import archive
 
     # DQMC-only globals are NaN by design (container.py mirrors the reference's
     # make_measurements.jl:93-117 placeholder entries)
     NAN_BY_DESIGN = ("sgndetG", "logdetG", "action_fermionic", "action_total")
-    with h5py.File(stats, "r") as f:
-        names = []
-        f.visit(names.append)
-        dsets = [n for n in names if isinstance(f[n], h5py.Dataset)]
-        assert dsets, names
-        for n in dsets:
-            if any(k in n for k in NAN_BY_DESIGN):
-                continue
-            assert np.all(np.isfinite(f[n][...])), n
+    dsets = archive.datasets(archive.load(stats))
+    assert dsets
+    for n, v in dsets.items():
+        if any(k in n for k in NAN_BY_DESIGN):
+            continue
+        assert np.all(np.isfinite(v)), n
 
     # --- per-process checkpoints were written during the run and deleted ------
     assert glob.glob(os.path.join(datafolder, "*checkpoint*")) == []
 
 
 def _bin_contents(datafolder):
-    import h5py
+    from smoqyelphqmc_tpu.io import archive
 
     out = {}
-    for path in sorted(glob.glob(os.path.join(datafolder, "bins", "bin-*_pID-*.h5"))):
-        with h5py.File(path, "r") as f:
-            for cat in ("global", "local", "correlations", "composite"):
-                if cat in f:
-                    for name, ds in f[cat].items():
-                        out[(os.path.basename(path), cat, name)] = ds[()]
+    for path in sorted(glob.glob(os.path.join(datafolder, "bins", "bin-*_pID-*.npz"))):
+        for key, val in archive.datasets(archive.load(path)).items():
+            out[(os.path.basename(path), key)] = val
     return out
 
 
 @pytest.mark.slow
 def test_multihost_kill_and_resume(tmp_path):
-    """The multi-host failure path (VERDICT r3 item 5): both processes stop at a
+    """The multi-host failure path: both processes stop at a
     runtime limit mid-run (each writes its per-process local-walker-block
     checkpoint), BOTH relaunch, resume through driver.to_global /
     local_walker_block, and the completed run's bins are BIT-IDENTICAL to an
@@ -142,11 +136,11 @@ def test_multihost_kill_and_resume(tmp_path):
     for p in range(2):
         cps = glob.glob(os.path.join(datafolder, f"checkpoint_pID-{p}_slot-*.pkl"))
         assert cps, f"no per-process checkpoint for process {p}"
-    assert not os.path.exists(os.path.join(datafolder, "stats.h5"))
+    assert not os.path.exists(os.path.join(datafolder, "stats.npz"))
 
     # relaunch: resumes from the per-process checkpoints and completes
     _launch_workers(workdir, opts={"prefix": "int"})
-    assert os.path.exists(os.path.join(datafolder, "stats.h5"))
+    assert os.path.exists(os.path.join(datafolder, "stats.npz"))
     assert glob.glob(os.path.join(datafolder, "checkpoint_pID-*_slot-*.pkl")) == []
 
     res_bins = _bin_contents(datafolder)
@@ -176,7 +170,7 @@ def test_multihost_kill_and_resume_batched(tmp_path):
         assert cps, f"no per-process checkpoint for process {p}"
 
     _launch_workers(workdir, opts={**opts, "prefix": "int"})
-    assert os.path.exists(os.path.join(datafolder, "stats.h5"))
+    assert os.path.exists(os.path.join(datafolder, "stats.npz"))
 
     res_bins = _bin_contents(datafolder)
     assert set(res_bins) == set(ref_bins)
@@ -202,8 +196,8 @@ def test_four_process_walker_fleet(tmp_path):
     assert all(r["n_global_devices"] == 4 for r in reports)
 
     datafolder = os.path.join(workdir, "mh4-1")
-    bins = glob.glob(os.path.join(datafolder, "bins", "bin-*_pID-*.h5"))
+    bins = glob.glob(os.path.join(datafolder, "bins", "bin-*_pID-*.npz"))
     pids = sorted({p.split("pID-")[1].split(".")[0] for p in bins})
     assert pids == ["0", "1", "2", "3"], pids
-    assert os.path.exists(os.path.join(datafolder, "stats.h5"))
+    assert os.path.exists(os.path.join(datafolder, "stats.npz"))
     assert glob.glob(os.path.join(datafolder, "*checkpoint*")) == []

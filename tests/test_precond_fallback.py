@@ -5,7 +5,7 @@ iteration-neutral when walker propagators agree; at strong coupling or during
 early thermalization they genuinely differ, so the driver guards it with a
 host-side controller (parallel/walkers.PrecondFallbackController) that demotes
 to per-walker refresh when iteration counts blow past the running floor and
-probes shared mode periodically to promote back (VERDICT round 2, item 7)."""
+probes shared mode periodically to promote back."""
 
 import pytest
 

@@ -4,6 +4,7 @@ acceleration parity with the KPM preconditioner."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from smoqyelphqmc_tpu.models.fermion_path_integral import build_path_integral
 from smoqyelphqmc_tpu.ops.cg import cg_solve
@@ -89,3 +90,58 @@ def test_asym_spectral_preconditioner():
     assert bool(s1.converged)
     np.testing.assert_allclose(np.asarray(x1), np.asarray(x0), rtol=1e-5, atol=1e-7)
     assert int(s1.iters) < int(s0.iters) // 3
+
+
+def _solve_case(case):
+    """(fdm, dense M^T M) for the symmetric and asymmetric honeycomb and the
+    SSH chain (tau-dependent hoppings)."""
+    from _models import chain_model
+
+    if case == "ssh":
+        geo, tbm, tbp, _, elph = chain_model(L=4, beta=1.0, dtau=0.1, alpha=0.3, ssh=True)
+    else:
+        geo, tbm, tbp, _, elph = honeycomb_model(L=2, beta=1.0, dtau=0.1, alpha=0.4)
+    fpi = build_path_integral(tbp, elph)
+    st = build_checkerboard_structure(np.asarray(tbp.neighbor_table), tbp.n_sites)
+    fdm = FermionDetMatrix.from_path_integral(fpi, st, symmetric=case != "asym")
+    M = dense_M(fdm)
+    return fdm, M.T @ M
+
+
+def _solution_bound(A, tol, dtype):
+    """Relative solution error CG may leave: cond(A) times the residual
+    tolerance plus the rounding of the operator in `dtype`."""
+    return 2.0 * np.linalg.cond(A) * (tol + 10 * np.finfo(dtype).eps)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", ["sym", "asym", "ssh"])
+def test_spectral_cg_matches_dense_solve(case, dtype, rng):
+    """Spectral-preconditioned CG against numpy.linalg.solve of the dense
+    M^T M, at the action-solve (f64) and force-solve (f32) precisions."""
+    fdm, A = _solve_case(case)
+    tol = 1e-10 if dtype == "float64" else 1e-5
+    b = rng.standard_normal((2, fdm.Ltau, fdm.n_sites))
+    x_ref = np.linalg.solve(A, b.reshape(2, -1).T).T.reshape(b.shape)
+    f = fdm.astype(dtype)
+    pre = build_spectral(fdm)
+    x, st = cg_solve(f.mul_MtM, jnp.asarray(b, dtype), precond=pre.as_operator(), tol=tol, maxiter=4000)
+    assert bool(st.converged)
+    err = np.linalg.norm(np.asarray(x, np.float64) - x_ref) / np.linalg.norm(x_ref)
+    assert err <= _solution_bound(A, tol, dtype), (err, _solution_bound(A, tol, dtype))
+
+
+def test_spectral_cg_warm_start_matches_dense_solve(rng):
+    """A warm start near the solution converges to the same dense solution in
+    fewer iterations than the cold solve."""
+    fdm, A = _solve_case("sym")
+    b = rng.standard_normal((2, fdm.Ltau, fdm.n_sites))
+    x_ref = np.linalg.solve(A, b.reshape(2, -1).T).T.reshape(b.shape)
+    pre = build_spectral(fdm)
+    x0 = jnp.asarray(x_ref + 1e-3 * rng.standard_normal(b.shape))
+    _, cold = cg_solve(fdm.mul_MtM, jnp.asarray(b), precond=pre.as_operator(), tol=1e-10, maxiter=4000)
+    x, warm = cg_solve(fdm.mul_MtM, jnp.asarray(b), precond=pre.as_operator(), tol=1e-10, maxiter=4000, x0=x0)
+    assert bool(warm.converged)
+    assert int(warm.iters) < int(cold.iters), (int(warm.iters), int(cold.iters))
+    err = np.linalg.norm(np.asarray(x) - x_ref) / np.linalg.norm(x_ref)
+    assert err <= _solution_bound(A, 1e-10, "float64")
